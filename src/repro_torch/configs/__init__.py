@@ -1,0 +1,6 @@
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    get_config,
+    reduce_config,
+    register,
+)

@@ -1,0 +1,41 @@
+"""Shared model components: RMSNorm and RoPE.
+
+Counterpart of ``repro/models/common.py``; the inits live in
+``repro_torch/params.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with the ``(1 + w)`` scale (weights are stored centred on 0)."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.to(torch.float32))
+            ).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Llama-style half rotation. x [..., seq, heads, head_dim];
+    positions [..., seq]."""
+    if theta <= 0:
+        return x
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # [hd/2]
+    ang = positions[..., :, None].to(torch.float32) * freqs  # [..., s, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]  # [..., s, 1, hd/2]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

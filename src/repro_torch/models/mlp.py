@@ -1,0 +1,20 @@
+"""Feed-forward blocks: SwiGLU, squared-ReLU (Nemotron), GELU (HuBERT)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """x [b, s, d]; swiglu ``wi`` is [d, 2, ff], the others [d, ff]."""
+    if kind == "swiglu":
+        h = torch.einsum("bsd,dcf->bscf", x, p["wi"])
+        h = F.silu(h[..., 0, :]) * h[..., 1, :]
+    else:
+        h = torch.einsum("bsd,df->bsf", x, p["wi"])
+        if kind == "squared_relu":
+            h = torch.square(F.relu(h))
+        else:
+            # jax.nn.gelu defaults to the tanh approximation
+            h = F.gelu(h, approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])

@@ -1,0 +1,129 @@
+"""Model parameters for the port: the bridge from the JAX package's
+parameter tree, and a seeded init with the same distributions.
+
+The port's parameters are a plain dict::
+
+    {"embed": [V, d], "final_norm": [d], "lm_head": [d, V] (untied only),
+     "layers": [per-layer dict, ...]}
+
+Each layer dict keeps the JAX package's names and layouts: ``ln1``/``ln2``
+[d], ``attn`` {``wq`` [d, H, hd], ``wk``/``wv`` [d, K, hd], ``wo``
+[H, hd, d], optional ``bq``/``bk``/``bv``}, ``mlp`` {``wi`` [d, 2, ff]
+for SwiGLU else [d, ff], ``wo`` [ff, d]}.  The JAX tree stacks the
+repeating layer cycle along a leading axis (``jax.vmap`` init); here it
+is unstacked into the ``layers`` list.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _to_torch(x, device: torch.device):
+    if isinstance(x, dict):
+        return {k: _to_torch(v, device) for k, v in x.items()}
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX ``init_params`` tree, as numpy arrays, -> the port's params.
+
+    ``tree`` is e.g. ``jax.tree.map(np.asarray, params)``: ``embed``,
+    ``final_norm``, ``lm_head`` unless tied, and the layer stack as
+    ``prefix`` (tuple) + ``cycles`` (dict of ``l<j>`` layers stacked on a
+    leading cycle axis, or None) + ``rest`` (tuple).
+    """
+    device = resolve_device(device)
+    out: Dict[str, Any] = {k: _to_torch(tree[k], device)
+                           for k in ("embed", "final_norm", "lm_head")
+                           if k in tree}
+    layers: List[dict] = [_to_torch(lp, device) for lp in tree["prefix"]]
+    cycles = tree["cycles"]
+    if cycles is not None:
+        n_cycles = len(np.asarray(cycles["l0"]["ln1"]))
+        for c in range(n_cycles):
+            cyc = _index(cycles, c)
+            layers.extend(_to_torch(cyc[f"l{j}"], device)
+                          for j in range(len(cfg.layer_pattern)))
+    layers.extend(_to_torch(lp, device) for lp in tree["rest"])
+    assert len(layers) == cfg.num_layers, (len(layers), cfg.num_layers)
+    out["layers"] = layers
+    return out
+
+
+def layer_params(params: Dict[str, Any], cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s parameters (``serving/paged_model.py::_layer_params``
+    in the JAX package; the cycle index math is done once, in
+    ``from_numpy``)."""
+    return params["layers"][i]
+
+
+def _dense(shape, fan_in: int, generator: torch.Generator,
+           device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``models/common.py::dense_init``: N(0, 1) / sqrt(fan_in)."""
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return w.normal_(0.0, std, generator=generator).to(dtype)
+
+
+def _embed(shape, generator: torch.Generator, device: torch.device,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``models/common.py::embed_init``: N(0, 0.02^2)."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return w.normal_(0.0, 0.02, generator=generator).to(dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = None,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Random weights for a dense attention model, drawn from the same
+    distributions as the JAX ``init_params`` (not the same numbers: the
+    two frameworks' generators differ).  ``generator`` must live on
+    ``device``."""
+    device = resolve_device(device)
+    if cfg.num_experts or set(cfg.layer_kinds()) != {"attn"} \
+            or cfg.rope_theta <= 0 or cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense RoPE decoders are ported; the model "
+            f"zoo arrives with a later slice")
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ff = cfg.d_ff if cfg.d_ff else 4 * d
+
+    def dense(shape, fan_in):
+        return _dense(shape, fan_in, generator, device, dtype)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    params: Dict[str, Any] = {
+        "embed": _embed((cfg.vocab_size, d), generator, device, dtype),
+        "final_norm": zeros((d,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab_size), d)
+    layers = []
+    for _ in range(cfg.num_layers):
+        attn = {"wq": dense((d, H, hd), d), "wk": dense((d, K, hd), d),
+                "wv": dense((d, K, hd), d), "wo": dense((H, hd, d), H * hd)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros((H, hd)), bk=zeros((K, hd)),
+                        bv=zeros((K, hd)))
+        wi_shape = (d, 2, ff) if cfg.mlp_kind == "swiglu" else (d, ff)
+        layers.append({"ln1": zeros((d,)), "attn": attn, "ln2": zeros((d,)),
+                       "mlp": {"wi": dense(wi_shape, d),
+                               "wo": dense((ff, d), ff)}})
+    params["layers"] = layers
+    return params

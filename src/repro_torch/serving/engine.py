@@ -1,0 +1,311 @@
+"""Live serving engine: real compute, real codec, real paged memory.
+
+The wall-clock path of the JAX package's ``LiveEngine``
+(``bandwidth=None``, ``fetch_mode="sync"``) over a flat ``KVStore``:
+fetching-aware scheduling, a synchronous fetch at dispatch whose chunks
+are decoded frame by frame on the host and restored into the paged cache
+by the ``kv_restore`` kernel, suffix prefill over the restored prefix KV,
+and continuously batched paged decode through the ``paged_attention``
+kernel.
+
+The constructor takes every knob of the JAX engine so the two stay
+interchangeable; the knobs of the virtual-clock pipeline (``bandwidth``,
+``loss``, ``link_policy``, ``link_ramp``, ``rto_mode``,
+``use_table_sizes``, ``adaptive``, ``resolutions``, ``decode_table``,
+``cost``, ``fetch_mode="async"``), of the storage tier (``prefetch``, a
+``StorageCluster`` store), of fairness, of the fleet
+(``external_dispatch``) and of mesh sharding (``mesh``, ``mesh_shards``)
+raise ``NotImplementedError`` naming the slice of the port that brings
+them, rather than being ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.cluster.storage import KVStore
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.codec import KVCodec
+from repro_torch.core.fetch import FetchPlan, PlannedChunk, build_plan
+from repro_torch.core.layout import IntraLayout
+from repro_torch.core.scheduler import FetchingAwareScheduler, Request
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import attend
+from repro_torch.models.common import rms_norm
+from repro_torch.models.transformer import lm_logits
+from repro_torch.paged.cache import PagedKVCache
+from repro_torch.params import layer_params
+from repro_torch.serving import paged_model
+
+_VIRTUAL_CLOCK = "the virtual-clock fetch pipeline slice"
+
+
+@dataclasses.dataclass
+class EngineStats:
+    restore_buffer_high_water: int = 0
+    restored_tokens: int = 0
+    fetched_bytes: int = 0
+    steps: int = 0
+
+
+def _later(knob: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"LiveEngine({knob}=...) is not ported yet: it arrives with "
+        f"{slice_name} of the port")
+
+
+class LiveEngine:
+    """Single-node engine over a dense model (real compute), wall clock."""
+
+    def __init__(self, params, cfg: ModelConfig, store, *,
+                 n_pages: int = 256, page_size: int = 16,
+                 policy: str = "kvfetcher", max_running: int = 4,
+                 resolution: str = "240p",
+                 fetch_mode: str = "sync",
+                 bandwidth=None,
+                 loss=None,
+                 link_policy: Optional[str] = None,
+                 link_ramp: Optional[str] = None,
+                 rto_mode: str = "adaptive",
+                 use_table_sizes: bool = False,
+                 adaptive: Optional[bool] = None,
+                 resolutions: Optional[Tuple[str, ...]] = None,
+                 decode_table=None,
+                 cost=None,
+                 prefetch=None,
+                 fairness=None,
+                 external_dispatch: bool = False,
+                 # streaming client view: called as on_token(req, token,
+                 # t) the moment each token exists, first token inside
+                 # prefill, then once per decode step
+                 on_token: Optional[Callable[[Request, int, float],
+                                             None]] = None,
+                 mesh=None, mesh_shards: Optional[int] = None,
+                 device: DeviceLike = None):
+        later = {
+            "bandwidth": (bandwidth is not None, _VIRTUAL_CLOCK),
+            "loss": (loss is not None, _VIRTUAL_CLOCK),
+            "link_policy": (link_policy is not None, _VIRTUAL_CLOCK),
+            "link_ramp": (link_ramp is not None, _VIRTUAL_CLOCK),
+            "rto_mode": (rto_mode != "adaptive", _VIRTUAL_CLOCK),
+            "use_table_sizes": (use_table_sizes, _VIRTUAL_CLOCK),
+            "adaptive": (adaptive is not None, _VIRTUAL_CLOCK),
+            "resolutions": (resolutions is not None, _VIRTUAL_CLOCK),
+            "decode_table": (decode_table is not None, _VIRTUAL_CLOCK),
+            "cost": (cost is not None, _VIRTUAL_CLOCK),
+            "fetch_mode": (fetch_mode != "sync", _VIRTUAL_CLOCK),
+            "prefetch": (prefetch is not None,
+                         "the storage-tier (staging and prefetch) slice"),
+            "fairness": (fairness is not None, "the fairness slice"),
+            "external_dispatch": (external_dispatch, "the fleet slice"),
+            "mesh": (mesh is not None, "the sharding slice"),
+            "mesh_shards": (mesh_shards is not None, "the sharding slice"),
+        }
+        for knob, (given, slice_name) in later.items():
+            if given:
+                raise _later(knob, slice_name)
+        if not isinstance(store, KVStore):
+            raise NotImplementedError(
+                f"LiveEngine store {type(store).__name__}: only the flat "
+                f"KVStore is ported; StorageCluster arrives with the "
+                f"storage-tier slice of the port")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.store = store
+        self.cache = PagedKVCache(cfg, n_pages, page_size,
+                                  device=self.device)
+        self.sched = FetchingAwareScheduler(policy, max_running=max_running)
+        self.resolution = resolution
+        self.stats = EngineStats()
+        self.prompts: Dict[int, np.ndarray] = {}
+        self.outputs: Dict[int, List[int]] = {}
+        self.finished: List[Request] = []
+        self.on_token = on_token
+
+    def now(self) -> float:
+        # the wall-clock engine stamps real times; replayed event logs
+        # come from the virtual-clock engine, which this slice lacks
+        return time.monotonic()  # repro-lint: allow(no-wall-clock)
+
+    # -- intake -------------------------------------------------------------
+    def submit(self, tokens: np.ndarray, reuse_prefix: Optional[str] = None,
+               reuse_tokens: int = 0, max_new_tokens: int = 8,
+               user: Optional[str] = None,
+               slo_tier: Optional[str] = None,
+               rid: Optional[int] = None) -> Request:
+        rid = len(self.prompts) if rid is None else int(rid)
+        if rid in self.prompts:
+            raise ValueError(f"rid {rid} already submitted")
+        req = Request(rid=rid, arrival=self.now(), prompt_len=len(tokens),
+                      max_new_tokens=max_new_tokens,
+                      reuse_tokens=reuse_tokens, prefix=reuse_prefix,
+                      user=user, slo_tier=slo_tier)
+        self.prompts[rid] = np.asarray(tokens)
+        self.outputs[rid] = []
+        self.sched.submit(req, req.arrival)
+        return req
+
+    # -- fetch dispatch -------------------------------------------------------
+    def _start_fetch(self, req: Request) -> None:
+        """Resolve the request's prefix in the flat store and fetch it."""
+        man = self.store.lookup(req.prefix)
+        if man is None:
+            raise KeyError(f"prefix {req.prefix} not registered")
+        plan = build_plan(req.rid, man)
+        self.cache.add_seq(req.rid, req.prompt_len + req.max_new_tokens)
+        self._run_fetch_wall(req, plan)
+
+    def _run_fetch_wall(self, req: Request, plan: FetchPlan) -> None:
+        """Fetch synchronously, stamping real timestamps (no network
+        model)."""
+        req.fetch_started = self.now()
+        for pc in plan.chunks:
+            pc.resolution = self.resolution
+            pc.t_transmit_start = pc.t_transmit_done = self.now()
+            self._restore_chunk(req, plan, pc)
+            pc.t_decode_done = pc.t_restored = self.now()
+        req.layers_ready = plan.layers_ready()
+        self.sched.notify_fetch_done(req, self.now())
+
+    # -- frame-wise restoration (real codec + paged scatter) -----------------
+    def _restore_chunk(self, req: Request, plan: FetchPlan,
+                       pc: PlannedChunk) -> None:
+        man = plan.manifest
+        res = pc.resolution or self.resolution
+        blob = man.blobs[(pc.ref.chunk_id, res)]
+        self.stats.fetched_bytes += len(blob)
+        lay = IntraLayout(self.cfg.num_kv_heads, self.cfg.head_dim,
+                          *man.layout)
+        codec = KVCodec(self.cfg.num_kv_heads, self.cfg.head_dim, lay)
+        scales = torch.as_tensor(man.scales[pc.ref.kind], device=self.device)
+        for toks, qt in codec.iter_decode_frames(blob):
+            buf = qt.nbytes * 2  # residual + reference frame
+            self.stats.restore_buffer_high_water = max(
+                self.stats.restore_buffer_high_water, buf)
+            global_toks = toks + pc.ref.token_start
+            # one upload per frame, layer-major so each layer's
+            # [n, K, hd] tokens are contiguous on the device
+            frame = torch.as_tensor(
+                np.ascontiguousarray(qt.transpose(1, 0, 2, 3)),
+                device=self.device)
+            for li, layer in enumerate(pc.ref.layers):
+                self.cache.restore_tokens(layer, pc.ref.kind, req.rid,
+                                          global_toks, frame[li],
+                                          scales[layer])
+            self.stats.restored_tokens += len(toks)
+
+    # -- prefill -------------------------------------------------------------
+    def _prefill(self, req: Request) -> None:
+        tokens = self.prompts[req.rid]
+        total = len(tokens) + req.max_new_tokens
+        if req.rid not in self.cache.seqs:
+            self.cache.add_seq(req.rid, total)
+        else:
+            self.cache.ensure_capacity(req.rid, total)
+        if req.needs_fetch:
+            logits = self._suffix_prefill(req, tokens)
+        else:
+            logits, kvs = paged_model.prefill_collect_kv(
+                self.params, self.cfg,
+                torch.as_tensor(tokens[None], dtype=torch.long,
+                                device=self.device))
+            for layer, (k, v) in enumerate(kvs):
+                self.cache.write_prefill(layer, req.rid, k[0], v[0])
+            logits = logits[0]
+        info = self.cache.seqs[req.rid]
+        info.context_len = len(tokens)
+        nxt = int(torch.argmax(logits))
+        self.outputs[req.rid].append(nxt)
+        req.tokens_out = 1
+        req.t_first_token = self.now()
+        req.token_times.append(req.t_first_token)
+        if self.on_token is not None:
+            self.on_token(req, nxt, req.t_first_token)
+
+    def _suffix_prefill(self, req: Request,
+                        tokens: np.ndarray) -> torch.Tensor:
+        """Prefill only the non-reused suffix, attending over restored
+        prefix KV gathered from the paged cache."""
+        cfg = self.cfg
+        dev = self.device
+        n_pre = req.reuse_tokens
+        suffix = torch.as_tensor(tokens[None, n_pre:], dtype=torch.long,
+                                 device=dev)
+        b, s = suffix.shape
+        positions = torch.arange(n_pre, n_pre + s, dtype=torch.int32,
+                                 device=dev).expand(b, s)
+        pre_pos = torch.arange(n_pre, dtype=torch.int32,
+                               device=dev).expand(b, n_pre)
+        kpos = torch.cat([pre_pos, positions], dim=1)
+        rows = self.cache.slots_tensor(
+            self.cache.slots_for(req.rid, np.arange(n_pre))).long()
+        x = self.params["embed"][suffix]
+        for i in range(cfg.num_layers):
+            lp = layer_params(self.params, cfg, i)
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = paged_model._qkv(lp["attn"], h, cfg, positions)
+            self.cache.write_prefill(i, req.rid, k[0], v[0],
+                                     start_pos=n_pre)
+            pk = self.cache.layer_rows(self.cache.k_pages, i)[rows][None]
+            pv = self.cache.layer_rows(self.cache.v_pages, i)[rows][None]
+            k_all = torch.cat([pk.to(k.dtype), k], dim=1)
+            v_all = torch.cat([pv.to(v.dtype), v], dim=1)
+            out = attend(q, k_all, v_all, positions, kpos, causal=True,
+                         window=cfg.sliding_window)
+            x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + paged_model._mlp_out(lp, h2, cfg)
+        return lm_logits(self.params, cfg, x[:, -1:, :])[0, 0]
+
+    # -- main loop ------------------------------------------------------------
+    def step(self) -> bool:
+        """One engine iteration. Returns False when idle and done."""
+        self.sched.schedule(self.now())
+        for req in self.sched.take_fetches():
+            self._start_fetch(req)
+            self.sched.schedule(self.now())
+        # newly admitted requests need prefill
+        for req in list(self.sched.running):
+            if req.t_first_token is None:
+                self._prefill(req)
+        # one decode step for every running sequence (continuous batching)
+        active = [r for r in self.sched.running
+                  if r.tokens_out < r.max_new_tokens]
+        if active:
+            seq_ids = [r.rid for r in active]
+            toks = torch.as_tensor([self.outputs[r.rid][-1] for r in active],
+                                   dtype=torch.long)
+            positions = torch.as_tensor(
+                [len(self.prompts[r.rid]) + r.tokens_out - 1
+                 for r in active], dtype=torch.int32)
+            logits = paged_model.decode_paged(
+                self.params, self.cfg, toks, positions, self.cache, seq_ids)
+            nxt = torch.argmax(logits, dim=-1).tolist()
+            tnow = self.now()
+            for i, req in enumerate(active):
+                self.outputs[req.rid].append(int(nxt[i]))
+                req.tokens_out += 1
+                req.token_times.append(tnow)
+                if self.on_token is not None:
+                    self.on_token(req, int(nxt[i]), tnow)
+        for req in list(self.sched.running):
+            if req.tokens_out >= req.max_new_tokens:
+                self.sched.finish(req, self.now())
+                self.cache.free_seq(req.rid)
+                self.finished.append(req)
+        self.stats.steps += 1
+        return bool(self.sched.running or self.sched.waiting
+                    or self.sched.waiting_for_kv)
+
+    def run(self, max_steps: int = 1000) -> None:
+        for _ in range(max_steps):
+            if not self.step():
+                break

@@ -1,0 +1,152 @@
+"""The port's own copies of the numpy-only modules agree with the JAX
+package's: configs, codec (byte-identical encodes), fetch plans,
+scheduler, allocator, workload and the flat KVStore."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.cluster.storage import KVStore as JaxKVStore  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduce_config as jax_reduce_config  # noqa: E402
+from repro.core.chunks import encode_prefix as jax_encode_prefix  # noqa: E402
+from repro.core.codec import KVCodec as JaxKVCodec  # noqa: E402
+from repro.core.fetch import build_plan as jax_build_plan  # noqa: E402
+from repro.core.layout import IntraLayout as JaxIntraLayout  # noqa: E402
+from repro.core.scheduler import (  # noqa: E402
+    FetchingAwareScheduler as JaxScheduler, Request as JaxRequest)
+from repro.data.workload import (  # noqa: E402
+    shared_prefix_tokens as jax_shared_prefix_tokens)
+from repro.paged.allocator import PageAllocator as JaxAllocator  # noqa: E402
+
+from repro_torch.cluster.storage import KVStore  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.core.chunks import (  # noqa: E402
+    decode_chunk_tokens, encode_prefix, prefix_key)
+from repro_torch.core.codec import KVCodec  # noqa: E402
+from repro_torch.core.fetch import build_plan  # noqa: E402
+from repro_torch.core.layout import IntraLayout  # noqa: E402
+from repro_torch.core.scheduler import (  # noqa: E402
+    FetchingAwareScheduler, Request)
+from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
+from repro_torch.paged.allocator import PageAllocator  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["lwm-7b", "yi-34b", "llama3-70b"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_configs_match(name, reduced):
+    cfg, ref = get_config(name), jax_get_config(name)
+    if reduced:
+        cfg, ref = reduce_config(cfg), jax_reduce_config(ref)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert cfg.kv_bytes_per_token() == ref.kv_bytes_per_token()
+    assert cfg.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("T,L,H,D,tpc,layout", [
+    (40, 4, 8, 32, 16, None),     # layout searched
+    (24, 3, 4, 16, 10, (2, 4)),   # fixed layout, ragged last chunk
+])
+def test_encode_prefix_byte_identical(synthetic_kv, T, L, H, D, tpc,
+                                      layout):
+    kv_k, kv_v, toks = synthetic_kv(T, L, H, D, seed=T)
+    kw = dict(prefix=prefix_key(toks), tokens_per_chunk=tpc,
+              resolutions=("240p", "480p"))
+    ours = encode_prefix(kv_k, kv_v, layout=None if layout is None
+                         else IntraLayout(H, D, *layout), **kw)
+    ref = jax_encode_prefix(kv_k, kv_v, layout=None if layout is None
+                            else JaxIntraLayout(H, D, *layout), **kw)
+    assert ours.layout == ref.layout
+    assert ours.blobs == ref.blobs
+    assert ours.scales.keys() == ref.scales.keys()
+    for kind in ours.scales:
+        np.testing.assert_array_equal(ours.scales[kind], ref.scales[kind])
+    assert [dataclasses.astuple(r) for r in ours.refs] == \
+        [dataclasses.astuple(r) for r in ref.refs]
+    # frame-wise decode of our blobs with the JAX codec and vice versa
+    lay = IntraLayout(H, D, *ours.layout)
+    jlay = JaxIntraLayout(H, D, *ref.layout)
+    for r in ours.refs:
+        blob = ours.blobs[(r.chunk_id, "240p")]
+        ours_frames = list(KVCodec(H, D, lay).iter_decode_frames(blob))
+        ref_frames = list(JaxKVCodec(H, D, jlay).iter_decode_frames(blob))
+        assert len(ours_frames) == len(ref_frames)
+        for (t1, q1), (t2, q2) in zip(ours_frames, ref_frames):
+            np.testing.assert_array_equal(t1, t2)
+            np.testing.assert_array_equal(q1, q2)
+    deq = decode_chunk_tokens(ours, ours.refs[0].chunk_id, "240p", H, D)
+    assert deq.shape == (min(tpc, T), len(ours.refs[0].layers), H, D)
+
+
+def test_kvstore_matches_jax_facade(synthetic_kv):
+    kv_k, kv_v, toks = synthetic_kv(20, 3, 4, 16, seed=3)
+    ours, ref = KVStore(), JaxKVStore()
+    kw = dict(tokens_per_chunk=8, resolutions=("240p",))
+    m1 = ours.register_prefix(toks, kv_k, kv_v, **kw)
+    m2 = ref.register_prefix(toks, kv_k, kv_v, **kw)
+    key = prefix_key(toks)
+    assert m1.prefix == m2.prefix == key
+    assert ours.stored_bytes() == ref.stored_bytes()
+    assert list(ours.manifests) == list(ref.manifests) == [key]
+    assert ours.lookup(key) is m1 and ours.lookup("missing") is None
+    cid = m1.refs[0].chunk_id
+    assert ours.get_chunk(key, cid, "240p") == ref.get_chunk(key, cid,
+                                                             "240p")
+
+
+def test_build_plan_matches(synthetic_kv):
+    kv_k, kv_v, toks = synthetic_kv(30, 7, 4, 16, seed=4)
+    man = encode_prefix(kv_k, kv_v, prefix="p", tokens_per_chunk=12,
+                        resolutions=("240p",))
+    jman = jax_encode_prefix(kv_k, kv_v, prefix="p", tokens_per_chunk=12,
+                             resolutions=("240p",))
+    plan, jplan = build_plan(5, man), jax_build_plan(5, jman)
+    assert [(c.ref.chunk_id, c.sizes) for c in plan.chunks] == \
+        [(c.ref.chunk_id, c.sizes) for c in jplan.chunks]
+    assert plan.n_layers_total == jplan.n_layers_total == 7
+    for c in plan.chunks[:6]:  # layer group 0: k and v of its 3 chunks
+        c.t_restored = 1.0
+    assert plan.layers_ready() == 3 and not plan.done
+
+
+@pytest.mark.parametrize("policy", ["kvfetcher", "fetch_agnostic"])
+def test_scheduler_matches(policy):
+    def drive(sched_cls, req_cls):
+        s = sched_cls(policy, max_running=2)
+        reqs = [req_cls(rid=i, arrival=float(i), prompt_len=10,
+                        reuse_tokens=6 if i % 2 else 0) for i in range(5)]
+        log = []
+        for r in reqs:
+            s.submit(r, r.arrival)
+        for t in range(6):
+            adm = s.schedule(float(t))
+            fetches = s.take_fetches()
+            log.append(([r.rid for r in adm], [r.rid for r in fetches]))
+            for r in fetches:
+                s.notify_fetch_done(r, float(t))
+            if s.running:
+                s.finish(s.running[0], float(t))
+        return log, [r.state.value for r in reqs]
+
+    assert drive(FetchingAwareScheduler, Request) == \
+        drive(JaxScheduler, JaxRequest)
+
+
+def test_allocator_and_workload_match():
+    a, b = PageAllocator(8), JaxAllocator(8)
+    for alloc in (a, b):
+        alloc.allocate(0, 3)
+        alloc.allocate(1, 2)
+        alloc.release(0)
+        alloc.extend(1, 4)
+    assert a.owned == b.owned and a.free == b.free
+    with pytest.raises(MemoryError):
+        a.allocate(2, 9)
+    p1, q1 = shared_prefix_tokens(np.random.default_rng(7), 100, 12, 3, 4)
+    p2, q2 = jax_shared_prefix_tokens(np.random.default_rng(7), 100, 12, 3,
+                                      4)
+    np.testing.assert_array_equal(p1, p2)
+    for x, y in zip(q1, q2):
+        np.testing.assert_array_equal(x, y)

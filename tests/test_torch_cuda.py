@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``gpu``: each test skips on a machine without a CUDA device.
+Imports neither jax nor the JAX package, so it runs on a machine with
+only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.cluster.storage import KVStore  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
+from repro_torch.kernels.kv_restore.ref import kv_restore_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_attention_ref)
+from repro_torch.core.chunks import prefix_key  # noqa: E402
+from repro_torch.params import init_params  # noqa: E402
+from repro_torch.serving import paged_model  # noqa: E402
+from repro_torch.serving.engine import LiveEngine  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _restore_case(n, H, D, R, dtype, slots, seed, device):
+    rng = np.random.default_rng(seed)
+    pages = torch.from_numpy(rng.standard_normal((R, H, D)).astype(
+        np.float32)).to(device, dtype)
+    q = torch.from_numpy(rng.integers(0, 256, (n, H, D)).astype(
+        np.uint8)).to(device)
+    scales = torch.from_numpy((rng.random(H) + 0.05).astype(
+        np.float32)).to(device)
+    return pages, q, scales, torch.tensor(slots, dtype=torch.int32,
+                                          device=device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n,H,D,slots", [
+    (8, 32, 128, [3, 0, -1, 9, 17, -1, 4, 30]),  # lwm-7b 240p frame
+    (3, 8, 10, [2, -1, 0]),                       # rows not 16-byte sized
+])
+def test_kv_restore_kernel_bit_equal(cuda, dtype, n, H, D, slots):
+    pages, q, scales, sl = _restore_case(n, H, D, 32, getattr(torch, dtype),
+                                         slots, 0, cuda)
+    want = kv_restore_ref(pages.clone(), q, scales, sl)
+    before = kv_ops.launches
+    got = kv_ops.kv_restore(pages, q, scales, sl)
+    torch.cuda.synchronize()
+    assert kv_ops.launches == before + 1 and got is pages
+    assert torch.equal(got, want)
+
+
+def test_kv_restore_kernel_unaligned_tokens(cuda):
+    pages, q, scales, sl = _restore_case(5, 4, 16, 16, torch.float32,
+                                         [1, 2, 3, 4, 5], 1, cuda)
+    buf = torch.empty(q.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(q.shape)  # contiguous, 1 byte off alignment
+    shifted.copy_(q)
+    want = kv_restore_ref(pages.clone(), q, scales, sl)
+    kv_ops.kv_restore(pages, shifted, scales, sl)
+    torch.cuda.synchronize()
+    assert torch.equal(pages, want)
+
+
+def test_kv_restore_kernel_rejects_bad_arguments(cuda):
+    pages, q, scales, sl = _restore_case(2, 4, 16, 8, torch.float32,
+                                         [0, 1], 2, cuda)
+    with pytest.raises(TypeError):
+        kv_ops.kv_restore(pages, q, scales, sl.long())
+    with pytest.raises(ValueError):
+        kv_ops.kv_restore(pages, q, scales.cpu(), sl)
+    with pytest.raises(ValueError):
+        kv_ops.kv_restore(pages, q[:, :2], scales, sl)
+
+
+@pytest.mark.parametrize("H,K,hd,ps,lens,pad", [
+    (32, 32, 128, 16, [530, 17, 64], False),  # lwm-7b
+    (56, 8, 128, 16, [530, 1, 300], True),    # yi-34b GQA, padded tables
+    (8, 2, 32, 8, [13, 40], False),
+])
+def test_paged_attention_kernel_matches_plain(cuda, H, K, hd, ps, lens, pad):
+    rng = np.random.default_rng(0)
+    B = len(lens)
+    bps = max(-(-n // ps) for n in lens) + 1
+    P = B * bps + 3
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    q, kp, vp = f(B, H, hd), f(P, ps, K, hd), f(P, ps, K, hd)
+    bt = rng.permutation(P)[:B * bps].reshape(B, bps).astype(np.int32)
+    if pad:
+        for b, n in enumerate(lens):
+            bt[b, -(-n // ps):] = 0
+    bt = torch.from_numpy(bt).to(cuda)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want = paged_attention_ref(q, kp, vp, bt, cl)
+    before = pa_ops.launches
+    got = pa_ops.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert pa_ops.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_paged_attention_kernel_marks_bad_pages_nan(cuda):
+    q = torch.randn(1, 4, 32, device=cuda)
+    kp = torch.randn(4, 8, 2, 32, device=cuda)
+    bt = torch.tensor([[1, 9]], dtype=torch.int32, device=cuda)  # 9 >= P
+    cl = torch.tensor([12], dtype=torch.int32, device=cuda)
+    out = pa_ops.paged_attention(q, kp, kp, bt, cl)
+    assert torch.isnan(out).all()
+
+
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    cfg = reduce_config(get_config("lwm-7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = {k: v for k, v in params.items() if k != "layers"}
+    gpu_params = {k: v.to(cuda) for k, v in gpu_params.items()}
+    gpu_params["layers"] = [
+        {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(cuda)) for k, v in lp.items()}
+        for lp in params["layers"]]
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    full = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 8)])
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
+    outs = []
+    for dev, p in (("cpu", params), (cuda, gpu_params)):
+        store = KVStore()
+        store.register_prefix(prefix, kv_k, kv_v, tokens_per_chunk=16,
+                              resolutions=("240p",))
+        eng = LiveEngine(p, cfg, store, device=dev)
+        r = eng.submit(full, reuse_prefix=prefix_key(prefix),
+                       reuse_tokens=48, max_new_tokens=4)
+        eng.run()
+        assert r.t_first_token is not None
+        outs.append(eng.outputs[r.rid])
+    assert outs[0] == outs[1]
