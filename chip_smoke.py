@@ -23,7 +23,26 @@ JAX or of the JAX package.  Phases:
    path implies; the restored pages must equal the codec's dequantized
    frames bit for bit;
 5. reference: the same engine at a reduced size on the card and on the
-   CPU (plain versions) must generate the same tokens.
+   CPU (plain versions) must generate the same tokens;
+6. Mamba2 set-up: lwm-7b's weights are freed, then mamba2-2.7b at full
+   width (64 layers, d 2560, d_inner 5120, 80 SSM heads of dim 64, state
+   128, vocab 50280) with random fp32 weights from a seeded
+   ``torch.Generator``, and a 2048-token prefix with two 16-token
+   suffixes from ``numpy.random.default_rng``;
+7. kernel: ``ssd_scan`` against its plain version on the card at the
+   path's shapes (s 2048 and 2064, chunk 64) and at s 40, y and final
+   state within 2e-4 of their largest magnitude, timed beside its bound;
+8. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
+   prefix; its recurrent state is snapshotted, encoded on the host,
+   decoded, rebuilt on the card bit for bit, and two reuse requests
+   (batched) feed their suffixes through ``decode_step`` and generate 16
+   tokens; one plain request prefills prefix + suffix (2064 tokens) and
+   generates 16.  ``ssd_scan``'s count is set to 0 just before and read
+   just after and must be 2 prefills x 64 layers; the kernel's prefill
+   logits must match the plain version's on the card within 2e-4 of the
+   largest logit; the reuse-versus-exact-cache logit error is reported;
+9. reference: the same snapshot path at a reduced size on the card
+   (kernel) and on the CPU (plain version) must generate the same tokens.
 
 TF32 is switched off for matrix products and convolutions, so every fp32
 product runs in full fp32.  Any failed check raises and the script exits
@@ -38,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 if not (ROOT / "src" / "repro_torch").is_dir():
@@ -50,7 +70,9 @@ import torch  # noqa: E402
 
 from repro_torch.cluster.storage import KVStore  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
-from repro_torch.core.chunks import decode_chunk_tokens, prefix_key  # noqa: E402
+from repro_torch.core.chunks import (  # noqa: E402
+    decode_chunk_tokens, decode_state_snapshot, encode_state_snapshot,
+    prefix_key)
 from repro_torch.core.codec import KVCodec  # noqa: E402
 from repro_torch.core.layout import IntraLayout  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
@@ -60,6 +82,10 @@ from repro_torch.kernels.kv_restore.ref import kv_restore_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
@@ -74,6 +100,10 @@ N_PAGES = 128
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 ATTN_TOL = 1e-4
+MAMBA_PREFIX = 2048
+SCAN_CHUNK = 64               # apply_ssm_full's chunk
+SCAN_TOL = 2e-4               # of the largest |y| or |state|
+LOGIT_TOL = 2e-4              # of the largest |logit|
 
 
 def log(*a) -> None:
@@ -122,19 +152,22 @@ def bound(n_bytes: float, n_flops: float):
 
 # -- phase 2: model, donor, store --------------------------------------------
 
+def n_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(n_params(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(n_params(v) for v in params)
+    return params.numel()
+
+
 def set_up(dev):
     cfg = get_config("lwm-7b")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"],
-                                        params["lm_head"]])
-    n_params += sum(t.numel() for lp in params["layers"]
-                    for v in lp.values()
-                    for t in (v.values() if isinstance(v, dict) else [v]))
-    log(f"[setup] lwm-7b full width, {n_params / 1e9:.3f} B fp32 params, "
-        f"init {time.perf_counter() - t0:.2f} s")
+    log(f"[setup] lwm-7b full width, {n_params(params) / 1e9:.3f} B fp32 "
+        f"params, init {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
     prefix, prompts = shared_prefix_tokens(rng, cfg.vocab_size, PREFIX_TOKENS,
                                            2, SUFFIX_TOKENS)
@@ -282,15 +315,15 @@ def check_restored_pages(eng, cfg, man, rid) -> None:
                   f"from the codec's dequantized frames")
 
 
-def profile_step(eng) -> bool:
-    """One decode step under torch.profiler: device busy share and the
-    operators that take the most device and host time.  Returns what
-    ``eng.step()`` returned."""
+def profile_step(fn, what: str = "one decode step"):
+    """``fn()`` under torch.profiler: device busy share and the operators
+    that take the most device and host time.  Returns what ``fn()``
+    returned."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        busy = eng.step()
+        busy = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, ops = [], []
@@ -302,7 +335,7 @@ def profile_step(eng) -> bool:
             (dev_us if on_device else e.self_cpu_time_total, e.count, e.key))
     busy_ms = sum(k[0] for k in kernels) / 1e3
     n_launch = sum(k[1] for k in kernels)
-    log(f"[profile] one decode step: wall {wall_ms:.2f} ms (profiled), "
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms (profiled), "
         f"{n_launch} kernels, device busy {busy_ms:.2f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for us, count, key in sorted(kernels, reverse=True)[:6]:
@@ -335,7 +368,7 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain):
     while busy:
         prefilled = all(r.t_first_token is not None for r in reqs)
         if prefilled and not profiled and len(step_ms) == 4:
-            busy, profiled = profile_step(eng), True
+            busy, profiled = profile_step(eng.step), True
             continue
         t0 = time.perf_counter()
         busy = eng.step()
@@ -428,6 +461,257 @@ def small_reference(dev) -> None:
     log(f"[small] reduced lwm-7b on the card == on the CPU: {outs[1]}")
 
 
+# -- phase 6: Mamba2 at full width ---------------------------------------------
+
+def mamba_set_up(dev):
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    torch.cuda.synchronize()
+    log(f"[mamba] mamba2-2.7b full width, {n_params(params) / 1e9:.3f} B "
+        f"fp32 params, init {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prefix, prompts = shared_prefix_tokens(rng, cfg.vocab_size, MAMBA_PREFIX,
+                                           2, SUFFIX_TOKENS)
+    return cfg, params, prefix, prompts
+
+
+# -- phase 7: ssd_scan against its plain version ------------------------------
+
+def scan_inputs(dev, b, s, nh, hd, G, S, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def f(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    # a_log = dt * A with dt = softplus(.) ~ 0.7 and A = -1 at init
+    return (f(b, s, nh, hd), -torch.nn.functional.softplus(f(b, s, nh)),
+            f(b, s, G, S), f(b, s, G, S))
+
+
+def scan_bound(b, s, nh, hd, G, S, Q):
+    """(ms, "bytes" | "operations") for one scan: inputs read once and
+    outputs written once; the products the function needs: C.B^T once per
+    group (lower triangle with its diagonal), and per head M.X (lower
+    triangle), the inter-chunk term and the state update."""
+    c = -(-s // Q)
+    tri = Q * (Q + 1) // 2
+    n_bytes = 4 * (2 * b * s * nh * hd + b * s * nh + 2 * b * s * G * S
+                   + b * nh * hd * S)
+    n_flops = 2 * b * c * (G * tri * S
+                           + nh * (tri * hd + 2 * Q * S * hd))
+    return bound(n_bytes, n_flops)
+
+
+def ssd_scan_phase(dev, cfg):
+    nh, hd, G, S = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                    cfg.ssm_state)
+    err = 0.0
+    timed = None
+    for s in (MAMBA_PREFIX, MAMBA_PREFIX + SUFFIX_TOKENS, 40):
+        args = scan_inputs(dev, 1, s, nh, hd, G, S, s)
+        want_y, want_st = ssd_scan_ref(*args, chunk=SCAN_CHUNK)
+        y, st = ssd_ops.ssd_scan(*args, chunk=SCAN_CHUNK)
+        torch.cuda.synchronize()
+        for got, want, what in ((y, want_y, "y"), (st, want_st, "state")):
+            e = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(e <= SCAN_TOL * scale,
+                  f"ssd_scan s={s}: {what} off by {e} (largest {scale})")
+            err = max(err, e)
+            log(f"[kernel] ssd_scan s={s} nh={nh} hd={hd} G={G} S={S} "
+                f"chunk={SCAN_CHUNK}: {what} max_abs_err {e:.3g} of "
+                f"largest {scale:.3g}")
+        if s == MAMBA_PREFIX:
+            timed = args
+    ms = graph_ms(lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK),
+                  iters=20)
+    eager_ms = time_ms(lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK),
+                       iters=20)
+    plain_ms = graph_ms(lambda: ssd_scan_ref(*timed, chunk=SCAN_CHUNK),
+                        iters=5)
+    b_ms, b_by = scan_bound(1, MAMBA_PREFIX, nh, hd, G, S, SCAN_CHUNK)
+    log(f"[kernel] ssd_scan s={MAMBA_PREFIX}: device {ms * 1e3:.2f} "
+        f"us/launch (eager call {eager_ms * 1e3:.2f} us; plain version "
+        f"{plain_ms * 1e3:.2f} us; no single PyTorch call computes it; "
+        f"bound {b_ms * 1e3:.2f} us by {b_by})")
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/ssd_scan.py:63",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+# -- phase 8: the Mamba2 path -------------------------------------------------
+
+def generate(params, cfg, logits, cache, pos: int, n: int):
+    """Greedy: the first token from ``logits`` [b, V], then ``n - 1``
+    decode steps.  Returns (tokens [b, n], the host clock when the first
+    token was on the card, per-step ms)."""
+    toks = [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    t_first = time.perf_counter()
+    step_ms = []
+    for i in range(n - 1):
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(params, cfg, toks[-1], pos + i, cache)
+        toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(toks, 1).cpu().numpy(), t_first, step_ms
+
+
+def check_rebuilt(rebuilt, back, cfg) -> None:
+    got = tf.snapshot_states(rebuilt, cfg)
+    check(sorted(got) == sorted(back), "rebuilt cache has other tensors")
+    for name, arr in back.items():
+        for r in range(got[name].shape[1]):
+            check(np.array_equal(got[name][:, r:r + 1], arr),
+                  f"rebuilt {name} row {r} differs from the decoded array")
+
+
+def mamba_path(dev, cfg, params, prefix, prompts):
+    L = cfg.num_layers
+    suffix = torch.as_tensor(np.stack([p[MAMBA_PREFIX:] for p in prompts]),
+                             device=dev)
+    plain = torch.as_tensor(prompts[0][None], device=dev)
+    torch.cuda.synchronize()
+    ssd_ops.launches = 0
+    # donor
+    t0 = time.perf_counter()
+    donor_logits, donor_cache = tf.prefill(
+        params, cfg, tokens=torch.as_tensor(prefix[None], device=dev))
+    torch.cuda.synchronize()
+    t_donor = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    states = tf.snapshot_states(donor_cache, cfg)
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = encode_state_snapshot(states)
+    t_enc = time.perf_counter() - t0
+    n_vals = sum(v.size for v in states.values())
+    log(f"[mamba] donor prefill {MAMBA_PREFIX} tokens {t_donor:.3f} s; "
+        f"state to host {t_copy:.3f} s; host encode {t_enc:.2f} s: "
+        f"{len(blob)} bytes for {n_vals} int8 values "
+        f"({', '.join(f'{k} {v.shape}' for k, v in states.items())})")
+    # two reuse requests, batched, from the one snapshot
+    t0 = time.perf_counter()
+    back = decode_state_snapshot(blob)
+    t_dec = time.perf_counter() - t0
+    rebuilt = tf.cache_from_snapshot(back, cfg, dev, batch=2)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0 - t_dec
+    cache = rebuilt
+    first_step = None
+    for k in range(SUFFIX_TOKENS):
+        logits, cache = tf.decode_step(params, cfg, suffix[:, k],
+                                       MAMBA_PREFIX + k, cache)
+        if k == 0:
+            first_step = logits
+    reuse_out, t_first, reuse_ms = generate(
+        params, cfg, logits, cache, MAMBA_PREFIX + SUFFIX_TOKENS, NEW_TOKENS)
+    reuse_ttft = t_first - t0
+    # one plain request
+    t0 = time.perf_counter()
+    plain_logits, plain_cache = tf.prefill(params, cfg, tokens=plain)
+    plain_out, t_first, plain_ms = generate(
+        params, cfg, plain_logits[:, -1], plain_cache, plain.shape[1],
+        NEW_TOKENS)
+    plain_ttft = t_first - t0
+    launches = ssd_ops.launches
+    log(f"[mamba] ssd_scan launches {launches}, expected {2 * L} "
+        f"(2 prefills x {L} layers)")
+    check(launches == 2 * L, "ssd_scan launches differ from the path's")
+    check_rebuilt(rebuilt, back, cfg)
+    for out in (reuse_out, plain_out):
+        check(out.shape[1] == NEW_TOKENS and (out >= 0).all()
+              and (out < cfg.vocab_size).all(), f"bad output {out}")
+    log(f"[mamba] reuse TTFT {reuse_ttft:.3f} s (snapshot decode "
+        f"{t_dec:.3f} s + upload {t_up:.3f} s + {SUFFIX_TOKENS} suffix "
+        f"steps at b=2 + first token); plain TTFT {plain_ttft:.3f} s "
+        f"(prefill {plain.shape[1]} tokens + first token)")
+    log(f"[mamba] decode step ({L} layers): median "
+        f"{statistics.median(reuse_ms):.2f} ms at b=2 over "
+        f"{len(reuse_ms)} steps, {statistics.median(plain_ms):.2f} ms at "
+        f"b=1 over {len(plain_ms)} steps")
+    # the JAX test's measure: one decode step from the rebuilt cache
+    # against the same step from the donor's exact cache; reported, not
+    # gated (one int8 scale spans all 64 layers' states)
+    exact, _ = tf.decode_step(params, cfg, suffix[:1, 0], MAMBA_PREFIX,
+                              donor_cache)
+    got = first_step[:1]
+    e = (got - exact).abs().max().item()
+    scale = exact.abs().max().item()
+    log(f"[mamba] reuse vs exact cache, first suffix step: max |logit "
+        f"diff| {e:.4g}, {e / scale:.4g} of the largest |logit| "
+        f"{scale:.4g}; argmax "
+        f"{'agrees' if int(got.argmax()) == int(exact.argmax()) else 'differs'}"
+        f"; generation {'matches' if (reuse_out[0] == plain_out[0]).all() else 'differs from'}"
+        f" the plain request's")
+    # the kernel's prefill against the plain version's, on the card
+    with mock.patch.object(ssm_mod, "ssd_scan", ssd_scan_ref):
+        ref_logits, ref_cache = tf.prefill(
+            params, cfg, tokens=torch.as_tensor(prefix[None], device=dev))
+    torch.cuda.synchronize()
+    check(ssd_ops.launches == launches, "the plain prefill used the kernel")
+    e = (donor_logits - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    st_err = max((a["state"] - r["state"]).abs().max().item()
+                 for a, r in zip(donor_cache, ref_cache))
+    log(f"[mamba] prefill logits, kernel vs plain version on the card: "
+        f"max abs err {e:.4g} of largest {scale:.4g}; final states max abs "
+        f"err {st_err:.4g}")
+    check(e <= LOGIT_TOL * scale, "kernel prefill logits off")
+    profile_step(lambda: tf.prefill(
+        params, cfg, tokens=torch.as_tensor(prefix[None], device=dev)),
+        f"one {MAMBA_PREFIX}-token prefill")
+    profile_step(lambda: tf.decode_step(params, cfg, suffix[:, 0],
+                                        MAMBA_PREFIX, rebuilt),
+                 "one decode step at b=2")
+    return launches
+
+
+# -- phase 9: the snapshot path at a small size, card against CPU -------------
+
+def small_mamba_reference(dev) -> None:
+    cfg = reduce_config(get_config("mamba2-2.7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    rng = np.random.default_rng(SEED + 1)
+    prefix, prompts = shared_prefix_tokens(rng, cfg.vocab_size, 100, 2, 8)
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+    dev_params = {k: (to_dev(v) if k != "layers" else
+                      [{n: ({m: to_dev(w) for m, w in x.items()}
+                            if isinstance(x, dict) else to_dev(x))
+                        for n, x in lp.items()} for lp in v])
+                  for k, v in params.items()}
+    outs = []
+    for d, p in (("cpu", params), (dev, dev_params)):
+        before = ssd_ops.launches
+        _, cache = tf.prefill(p, cfg, tokens=torch.as_tensor(prefix[None],
+                                                             device=d))
+        check(ssd_ops.launches - before == (0 if d == "cpu"
+                                             else cfg.num_layers),
+              f"small mamba2 on {d}: wrong ssd_scan launch count")
+        blob = encode_state_snapshot(tf.snapshot_states(cache, cfg))
+        cache = tf.cache_from_snapshot(decode_state_snapshot(blob), cfg, d,
+                                       batch=2)
+        suffix = torch.as_tensor(np.stack([q[100:] for q in prompts]),
+                                 device=d)
+        for k in range(suffix.shape[1]):
+            logits, cache = tf.decode_step(p, cfg, suffix[:, k], 100 + k,
+                                           cache)
+        toks = [logits.argmax(-1)]
+        for i in range(5):
+            logits, cache = tf.decode_step(p, cfg, toks[-1], 108 + i, cache)
+            toks.append(logits.argmax(-1))
+        outs.append(torch.stack(toks, 1).cpu().tolist())
+    check(outs[0] == outs[1], f"card {outs[1]} != cpu {outs[0]}")
+    log(f"[small] reduced mamba2 snapshot path on the card == on the CPU: "
+        f"{outs[1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA device")
@@ -459,9 +743,17 @@ def main() -> int:
 
     launches = main_path(dev, cfg, params, store, man, prefix, prompts,
                          plain)
-    del params
+    del params, store, man
     torch.cuda.empty_cache()
     small_reference(dev)
+
+    m_cfg, m_params, m_prefix, m_prompts = mamba_set_up(dev)
+    rows.append(ssd_scan_phase(dev, m_cfg))
+    launches["ssd_scan"] = mamba_path(dev, m_cfg, m_params, m_prefix,
+                                      m_prompts)
+    del m_params
+    torch.cuda.empty_cache()
+    small_mamba_reference(dev)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

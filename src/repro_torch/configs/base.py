@@ -175,8 +175,8 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import every sibling module so registration side-effects run (the
-    # model-zoo configs arrive with the model-zoo slice)
-    from repro_torch.configs import paper_models  # noqa: F401
+    # rest of the model-zoo configs arrive with the model-zoo slice)
+    from repro_torch.configs import mamba2_2p7b, paper_models  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,10 @@
 """Chunking and manifests: a model prefix's KV cache <-> a set of encoded
 video chunks (paper §3.1: KV caches are chunked — 3 layers x token-chunk —
 compressed offline in multiple resolutions, and registered as reusable).
+
+Also covers the state-snapshot path for SSM / RG-LRU layers: recurrent
+states have no token axis, so snapshots are coded with intra-frame
+prediction + entropy only.
 """
 from __future__ import annotations
 
@@ -10,8 +14,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import entropy
 from repro_torch.core.codec import CodecOptions, KVCodec
 from repro_torch.core.layout import RESOLUTION_ORDER, IntraLayout
+from repro_torch.core.prediction import ZIGZAG, UNZIGZAG
 from repro_torch.core.quantization import quantize
 
 DEFAULT_TOKENS_PER_CHUNK = 10_000  # paper §4: 10K tokens x 3 layers
@@ -114,3 +120,58 @@ def decode_chunk_tokens(manifest: KVManifest, chunk_id: str,
     q = codec.decode_chunk(manifest.blobs[(chunk_id, resolution)])
     sc = manifest.scales[ref.kind][list(ref.layers)]  # [nl, H]
     return (q.astype(np.float32) - 128) * sc[None, :, :, None]
+
+
+# ---------------------------------------------------------------------------
+# Recurrent-state snapshots (SSM / RG-LRU prefix reuse)
+# ---------------------------------------------------------------------------
+
+def encode_state_snapshot(states: Dict[str, np.ndarray],
+                          lanes: int = 256) -> bytes:
+    """Flatten, per-tensor absmax-quantize, left-predict, entropy-code."""
+    import struct
+    out = bytearray()
+    out += struct.pack("<I", len(states))
+    for name in sorted(states):
+        x = np.asarray(states[name], np.float32)
+        absmax = max(float(np.abs(x).max()), 1e-8)
+        scale = absmax / 127.0
+        q = (np.clip(np.rint(x / scale), -127, 127) + 128).astype(np.uint8)
+        flat = q.reshape(-1)
+        res = flat.copy()
+        res[1:] = flat[1:] - flat[:-1]
+        stream = entropy.encode(ZIGZAG[res], lanes)
+        nb = name.encode()
+        out += struct.pack("<H", len(nb)) + nb
+        out += struct.pack("<f", scale)
+        out += struct.pack("<B", x.ndim)
+        out += struct.pack(f"<{x.ndim}I", *x.shape)
+        out += struct.pack("<I", len(stream)) + stream
+    return bytes(out)
+
+
+def decode_state_snapshot(blob: bytes) -> Dict[str, np.ndarray]:
+    import struct
+    off = 0
+    (n,) = struct.unpack_from("<I", blob, off)
+    off += 4
+    out = {}
+    for _ in range(n):
+        (ln,) = struct.unpack_from("<H", blob, off)
+        off += 2
+        name = blob[off:off + ln].decode()
+        off += ln
+        (scale,) = struct.unpack_from("<f", blob, off)
+        off += 4
+        (nd,) = struct.unpack_from("<B", blob, off)
+        off += 1
+        shape = struct.unpack_from(f"<{nd}I", blob, off)
+        off += 4 * nd
+        (sl,) = struct.unpack_from("<I", blob, off)
+        off += 4
+        z = entropy.decode(blob[off:off + sl])
+        off += sl
+        res = UNZIGZAG[z]
+        flat = np.cumsum(res.astype(np.uint64)).astype(np.uint8)
+        out[name] = (flat.reshape(shape).astype(np.float32) - 128) * scale
+    return out

@@ -1,0 +1,118 @@
+"""Public Mamba2 chunked SSD scan op: the plain version on CPU tensors, the
+CUDA kernel (``ssd_scan.cu``) on CUDA tensors."""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+#: kernel launches so far; a run resets it to 0 and reads it back to show
+#: which of its calls went through the kernel
+launches = 0
+
+#: the kernel's limits: head_dim, state and chunk length each at most this
+MAX_DIM = 128
+#: shared memory one block may use on an H100 (bytes)
+MAX_SMEM = 232_448
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = build.load("ssd_scan").ssd_scan_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def smem_bytes(Q: int, hd: int, S: int) -> int:
+    """Shared memory of one block: X [Q, hd], B [Q, S+1], a row tile of C
+    [T, S+1] and of the decay-weighted scores [T, Q] (T = min(Q, 64)), the
+    state [hd, S+1] and three [Q] vectors, all fp32 (``ssd_scan.cu``)."""
+    T = min(Q, 64)
+    return 4 * (Q * hd + Q * (S + 1) + T * (S + 1) + T * Q
+                + hd * (S + 1) + 3 * Q)
+
+
+def _check(xdt, a_log, Bm, Cm, Q: int) -> None:
+    dev = xdt.device
+    named = (("xdt", xdt), ("a_log", a_log), ("Bm", Bm), ("Cm", Cm))
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"ssd_scan: {name} is on {t.device}, xdt on "
+                             f"{dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: the kernel takes float32, {name} "
+                            f"is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous")
+    if xdt.dim() != 4 or a_log.shape != xdt.shape[:3] or Bm.dim() != 4 \
+            or Bm.shape != Cm.shape or Bm.shape[:2] != xdt.shape[:2]:
+        raise ValueError(
+            f"ssd_scan: shapes xdt {tuple(xdt.shape)}, a_log "
+            f"{tuple(a_log.shape)}, Bm {tuple(Bm.shape)}, Cm "
+            f"{tuple(Cm.shape)} do not match [b, s, nh, hd], [b, s, nh], "
+            f"[b, s, G, S] twice")
+    b, s, nh, hd = xdt.shape
+    G, S = Bm.shape[2], Bm.shape[3]
+    if G == 0 or nh % G:
+        raise ValueError(f"ssd_scan: G = {G} groups must divide nh = {nh}")
+    if hd > MAX_DIM or S > MAX_DIM or not 1 <= Q <= MAX_DIM:
+        raise ValueError(f"ssd_scan: the kernel takes head_dim, state and "
+                         f"chunk up to {MAX_DIM}, got {hd}, {S}, {Q}")
+    if smem_bytes(Q, hd, S) > MAX_SMEM:
+        raise ValueError(f"ssd_scan: chunk {Q}, head_dim {hd}, state {S} "
+                         f"need {smem_bytes(Q, hd, S)} bytes of shared "
+                         f"memory, more than {MAX_SMEM}")
+
+
+def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 chunked SSD scan from a zero state.
+
+    xdt [b, s, nh, hd] (x pre-multiplied by dt), a_log [b, s, nh] (dt*A),
+    Bm/Cm [b, s, G, S] with G dividing nh.  Returns (y [b, s, nh, hd]
+    fp32, final_state [b, nh, hd, S] fp32).  The chunk length is
+    ``Q = min(chunk, s)``; on the card s is padded with zeros to a
+    multiple of Q (a_log = 0, x = 0 leave the state intact) and y is
+    sliced back, as ``repro/kernels/ssd_scan/ops.py`` does.
+    """
+    if xdt.device.type == "cpu":
+        return ssd_scan_ref(xdt, a_log, Bm, Cm, chunk=chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for {xdt.device}")
+    b, s = xdt.shape[:2]
+    Q = min(chunk, s)
+    _check(xdt, a_log, Bm, Cm, Q)
+    nh, hd = xdt.shape[2], xdt.shape[3]
+    G, S = Bm.shape[2], Bm.shape[3]
+    y = torch.empty_like(xdt)
+    if b == 0 or s == 0 or nh == 0:
+        return y, torch.zeros(b, nh, hd, S, dtype=torch.float32,
+                              device=xdt.device)
+    state = torch.empty(b, nh, hd, S, dtype=torch.float32, device=xdt.device)
+    pad = (-s) % Q
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        y = torch.empty_like(xdt)
+    err = _launcher()(xdt.data_ptr(), a_log.data_ptr(), Bm.data_ptr(),
+                      Cm.data_ptr(), y.data_ptr(), state.data_ptr(), b,
+                      s + pad, nh, hd, G, S, Q, xdt.device.index,
+                      torch.cuda.current_stream(xdt.device).cuda_stream)
+    build.check(err, "ssd_scan")
+    global launches
+    launches += 1
+    return (y[:, :s] if pad else y), state

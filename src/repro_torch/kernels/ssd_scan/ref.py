@@ -1,0 +1,108 @@
+"""Plain PyTorch version of the Mamba2 chunked SSD scan, in the arithmetic
+of ``repro/models/ssm.py::ssd_chunked`` (the oracle of the TPU kernel).
+
+The arithmetic lives here once: ``repro_torch.models.ssm`` imports
+``ssd_chunked`` from this module, never the other way round.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _segsum(a_log: torch.Tensor) -> torch.Tensor:
+    """a_log [..., q] -> [..., q, q] lower-tri cumulative log-decay."""
+    q = a_log.shape[-1]
+    cs = torch.cumsum(a_log, dim=-1)
+    # decay from j+1..i inclusive = cs[i] - cs[j]; strictly lower + diag 0
+    dif = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones(q, q, dtype=torch.bool,
+                                 device=a_log.device))
+    return torch.where(mask, dif, torch.full_like(dif, -torch.inf))
+
+
+def ssd_chunked(xh: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+                chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD.
+
+    xh     [b, s, nh, hd]   (already multiplied by dt)
+    a_log  [b, s, nh]       log decay per step (dt * A, negative)
+    Bm, Cm [b, s, G, S]     (G broadcast over heads)
+    returns y [b, s, nh, hd] fp32, final_state [b, nh, hd, S] fp32
+    """
+    b, s, nh, hd = xh.shape
+    G, S = Bm.shape[2], Bm.shape[3]
+    assert nh % G == 0
+    q = min(chunk, s)
+    hpg = nh // G
+    orig_s = s
+    if s % q:  # pad to a chunk multiple; a_log=0, x=0 leaves state intact
+        pad = q - s % q
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        s = s + pad
+    c = s // q
+
+    cdtype = xh.dtype
+    xc = xh.reshape(b, c, q, nh, hd)
+    ac = a_log.reshape(b, c, q, nh).to(torch.float32)
+    Bc = Bm.reshape(b, c, q, G, S).to(cdtype)
+    Cc = Cm.reshape(b, c, q, G, S).to(cdtype)
+
+    acs = torch.cumsum(ac, dim=2)  # [b,c,q,nh]
+    # intra-chunk (diagonal) term
+    L = torch.exp(_segsum(ac.permute(0, 1, 3, 2))).to(cdtype)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)  # [b,c,G,q,q]
+    scores = torch.repeat_interleave(scores, hpg, dim=2)  # [b,c,nh,q,q]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", L * scores,
+                          xc).to(torch.float32)
+
+    # per-chunk end states: input at t decays by exp(sum_{t+1..end} a)
+    decay_to_end = torch.exp(acs[:, :, -1:, :] - acs).to(cdtype)
+    Bh = torch.repeat_interleave(Bc, hpg, dim=3)  # [b,c,q,nh,S]
+    states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bh, decay_to_end,
+                          xc).to(torch.float32)
+    y, final = _ssd_inter(y_diag, states, acs, Cc, xc, init_state, hpg)
+    return y[:, :orig_s], final
+
+
+def _ssd_inter(y_diag, states, acs, Cc, xc, init_state, hpg):
+    b, c, q, nh = acs.shape
+    hd = xc.shape[-1]
+    S = Cc.shape[-1]
+    chunk_decay = torch.exp(acs[:, :, -1, :])  # [b,c,nh]
+
+    if init_state is None:
+        init_state = torch.zeros(b, nh, hd, S, dtype=torch.float32,
+                                 device=acs.device)
+    # scan over chunks: h_prevs[:, i] is the state entering chunk i
+    h = init_state
+    h_prevs = []
+    for i in range(c):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, i, :, None, None] + states[:, i]
+    final = h
+    h_prevs = torch.stack(h_prevs, dim=1)  # [b,c,nh,hd,S]
+
+    # inter-chunk contribution: y_off[t] = C_t . (decay(0..t) * h_chunk_start)
+    in_decay = torch.exp(acs)  # decay from chunk start to t inclusive
+    Ch = torch.repeat_interleave(Cc, hpg, dim=3) if Cc.shape[3] != nh \
+        else Cc
+    y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch,
+                         h_prevs.to(Ch.dtype),
+                         in_decay.to(Ch.dtype)).to(torch.float32)
+    y = (y_diag.to(torch.float32) + y_off).reshape(b, c * q, nh, hd)
+    return y, final
+
+
+def ssd_scan_ref(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, chunk: int = 128
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xdt [b,s,nh,hd] (dt-folded); a_log [b,s,nh]; Bm/Cm [b,s,G,S].
+    Returns (y [b,s,nh,hd] fp32, final_state [b,nh,hd,S] fp32)."""
+    return ssd_chunked(xdt, a_log, Bm, Cm, chunk=chunk)

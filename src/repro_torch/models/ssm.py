@@ -1,0 +1,131 @@
+"""Mamba2 (SSD, state-space duality) block [arXiv:2405.21060].
+
+Counterpart of ``repro/models/ssm.py``.  The chunked scan of a full
+sequence goes through ``kernels.ssd_scan.ops.ssd_scan``: the CUDA kernel
+on the card, its plain version on the CPU.  Single-token decode is plain
+PyTorch (no TPU kernel backs it).  The init lives in
+``repro_torch/params.py``.
+
+Block dataflow (norm handled by the caller):
+  in_proj -> [z | xBC | dt]; causal depthwise conv + silu over xBC;
+  split xBC -> x, B, C;  dt = softplus(dt + bias);
+  h_t = exp(dt_t A) h_{t-1} + dt_t * B_t (x)  (outer product per head)
+  y_t = C_t . h_t + D * x_t
+  out = out_proj( rmsnorm(y * silu(z)) )
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: F401 (re-exported)
+    _segsum, _ssd_inter, ssd_chunked)
+from repro_torch.models.common import rms_norm
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` for every x (torch's own
+    softplus returns x itself above its threshold of 20)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int,
+                   dtype: torch.dtype = torch.float32,
+                   device: DeviceLike = None) -> dict:
+    device = resolve_device(device)
+    nh, hd, S = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    convdim = cfg.d_inner + 2 * cfg.ssm_ngroups * S
+    return {
+        "state": torch.zeros(batch, nh, hd, S, dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros(batch, cfg.ssm_conv - 1, convdim, dtype=dtype,
+                            device=device),
+    }
+
+
+def _split_in(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    din, G, S = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    proj = torch.einsum("bsd,dk->bsk", x, p["w_in"])
+    z = proj[..., :din]
+    xBC = proj[..., din:2 * din + 2 * G * S]
+    dt = proj[..., 2 * din + 2 * G * S:]
+    return z, xBC, dt
+
+
+def _conv_full(p: dict, xBC: torch.Tensor, prev: Optional[torch.Tensor]):
+    """Causal depthwise conv over seq. prev: [b, w-1, convdim] history.
+    The taps are summed in order 0..w-1, as the JAX package sums them."""
+    w = p["conv"].shape[0]
+    if prev is None:
+        prev = torch.zeros(xBC.shape[0], w - 1, xBC.shape[-1],
+                           dtype=xBC.dtype, device=xBC.device)
+    full = torch.cat([prev, xBC], dim=1)
+    s = xBC.shape[1]
+    out = sum(full[:, i:i + s] * p["conv"][i] for i in range(w))
+    return F.silu(out), full[:, -(w - 1):]
+
+
+def apply_ssm_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   with_cache: bool) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Train (with_cache=False) or prefill (True) over a full sequence."""
+    b, s, _ = x.shape
+    G, S, nh, hd = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
+                    cfg.ssm_head_dim)
+    z, xBC, dt = _split_in(p, x, cfg)
+    xBC, conv_state = _conv_full(p, xBC, None)
+    xin = xBC[..., :cfg.d_inner]
+    Bm = xBC[..., cfg.d_inner:cfg.d_inner + G * S].reshape(b, s, G, S)
+    Cm = xBC[..., cfg.d_inner + G * S:].reshape(b, s, G, S)
+    dt = softplus(dt.to(torch.float32) + p["dt_bias"])  # [b,s,nh]
+    A = -torch.exp(p["A_log"])
+    a_log = dt * A  # [b, s, nh]
+    xh = xin.reshape(b, s, nh, hd)
+    xdt = (xh.to(torch.float32) * dt[..., None]).to(xh.dtype)
+    y, final = ssd_scan(xdt.contiguous(), a_log.contiguous(),
+                        Bm.contiguous(), Cm.contiguous(), chunk=64)
+    y = y + xh.to(torch.float32) * p["D"][None, None, :, None]
+    y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = torch.einsum("bsk,kd->bsd", y, p["w_out"])
+    if with_cache:
+        return out, {"state": final, "conv": conv_state}
+    return out, None
+
+
+def apply_ssm_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     cache: dict) -> Tuple[torch.Tensor, dict]:
+    """x [b, 1, d] -> (out [b, 1, d], new cache)."""
+    b = x.shape[0]
+    G, S, nh, hd = (cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads,
+                    cfg.ssm_head_dim)
+    z, xBC, dt = _split_in(p, x, cfg)
+    # conv over [history | current]
+    hist = torch.cat([cache["conv"], xBC], dim=1)  # [b, w, convdim]
+    conv_out = torch.einsum("bwk,wk->bk", hist, p["conv"])[:, None]
+    xBC = F.silu(conv_out)
+    new_conv = hist[:, 1:]
+
+    xin = xBC[..., :cfg.d_inner]
+    Bm = xBC[..., cfg.d_inner:cfg.d_inner + G * S].reshape(b, G, S)
+    Cm = xBC[..., cfg.d_inner + G * S:].reshape(b, G, S)
+    dt = softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])  # [b,nh]
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A)  # [b, nh]
+    xh_raw = xin.reshape(b, nh, hd).to(torch.float32)
+    xh = xh_raw * dt[..., None]
+    hpg = nh // G
+    Bh = torch.repeat_interleave(Bm, hpg, dim=1)  # [b, nh, S]
+    Ch = torch.repeat_interleave(Cm, hpg, dim=1)
+    new_state = (cache["state"] * a[..., None, None]
+                 + xh[..., None] * Bh[:, :, None, :].to(torch.float32))
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.to(torch.float32))
+    y = y + xh_raw * p["D"][None, :, None]  # skip uses raw x (no dt)
+    y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = torch.einsum("bsk,kd->bsd", y, p["w_out"])
+    return out, {"state": new_state, "conv": new_conv}

@@ -9,7 +9,10 @@ The port's parameters are a plain dict::
 Each layer dict keeps the JAX package's names and layouts: ``ln1``/``ln2``
 [d], ``attn`` {``wq`` [d, H, hd], ``wk``/``wv`` [d, K, hd], ``wo``
 [H, hd, d], optional ``bq``/``bk``/``bv``}, ``mlp`` {``wi`` [d, 2, ff]
-for SwiGLU else [d, ff], ``wo`` [ff, d]}.  The JAX tree stacks the
+for SwiGLU else [d, ff], ``wo`` [ff, d]}; a Mamba2 layer has ``ln1`` and
+``ssm`` {``w_in`` [d, 2 din + 2 G S + nh], ``conv`` [w, din + 2 G S],
+``A_log``/``D``/``dt_bias`` [nh] fp32, ``norm_w`` [din], ``w_out``
+[din, d]} only.  The JAX tree stacks the
 repeating layer cycle along a leading axis (``jax.vmap`` init); here it
 is unstacked into the ``layers`` list.
 """
@@ -86,21 +89,41 @@ def _embed(shape, generator: torch.Generator, device: torch.device,
     return w.normal_(0.0, 0.02, generator=generator).to(dtype)
 
 
+def _ssm_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
+    """``models/ssm.py::init_ssm``: a Mamba2 block with no MLP."""
+    d, din = cfg.d_model, cfg.d_inner
+    G, S, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
+    convdim = din + 2 * G * S
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"ln1": zeros((d,)), "ssm": {
+        "w_in": dense((d, 2 * din + 2 * G * S + nh), d),
+        "conv": dense((cfg.ssm_conv, convdim), cfg.ssm_conv),
+        "A_log": torch.zeros((nh,), **f32),  # A = -exp(A_log) = -1
+        "D": torch.ones((nh,), **f32),
+        "dt_bias": torch.zeros((nh,), **f32),
+        "norm_w": zeros((din,)),
+        "w_out": dense((din, d), din),
+    }}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Random weights for a dense attention model, drawn from the same
-    distributions as the JAX ``init_params`` (not the same numbers: the
-    two frameworks' generators differ).  ``generator`` must live on
-    ``device``."""
+    """Random weights for a dense RoPE decoder or a Mamba2 stack, drawn
+    from the same distributions as the JAX ``init_params`` (not the same
+    numbers: the two frameworks' generators differ).  ``generator`` must
+    live on ``device``."""
     device = resolve_device(device)
-    if cfg.num_experts or set(cfg.layer_kinds()) != {"attn"} \
-            or cfg.rope_theta <= 0 or cfg.is_encoder:
+    kinds = set(cfg.layer_kinds())
+    dense_rope = kinds == {"attn"} and cfg.rope_theta > 0 \
+        and not cfg.is_encoder
+    if cfg.num_experts or cfg.first_layer_dense \
+            or not (dense_rope or kinds == {"ssm"}):
         raise NotImplementedError(
-            f"{cfg.name}: only dense RoPE decoders are ported; the model "
-            f"zoo arrives with a later slice")
-    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    ff = cfg.d_ff if cfg.d_ff else 4 * d
+            f"{cfg.name}: only dense RoPE decoders and Mamba2 stacks are "
+            f"ported; the rest of the model zoo arrives with the model-zoo "
+            f"slice (ROADMAP Queue 1 item 9)")
+    d = cfg.d_model
 
     def dense(shape, fan_in):
         return _dense(shape, fan_in, generator, device, dtype)
@@ -114,6 +137,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab_size), d)
+    if kinds == {"ssm"}:
+        params["layers"] = [_ssm_layer(cfg, dense, zeros, device)
+                            for _ in range(cfg.num_layers)]
+        return params
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ff = cfg.d_ff if cfg.d_ff else 4 * d
     layers = []
     for _ in range(cfg.num_layers):
         attn = {"wq": dense((d, H, hd), d), "wk": dense((d, K, hd), d),

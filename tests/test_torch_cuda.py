@@ -17,6 +17,9 @@ from repro_torch.kernels.kv_restore.ref import kv_restore_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.core.chunks import prefix_key  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
@@ -145,4 +148,75 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         eng.run()
         assert r.t_first_token is not None
         outs.append(eng.outputs[r.rid])
+    assert outs[0] == outs[1]
+
+
+def _scan_inputs(b, s, nh, hd, G, S, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def f(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(device)
+
+    return (f((b, s, nh, hd), 0.3), -f((b, s, nh), 0.1).abs(),
+            f((b, s, G, S), 0.3), f((b, s, G, S), 0.3))
+
+
+@pytest.mark.parametrize("b,s,nh,hd,G,S,chunk", [
+    (1, 40, 2, 8, 1, 4, 64),          # Q = s = 40, not a power of two
+    (1, 100, 2, 8, 1, 4, 32),         # padded to 128
+    (2, 64, 4, 16, 2, 8, 32),         # two groups
+    (1, 130, 4, 64, 2, 128, 128),     # Q > 64: two row tiles per chunk
+    (1, 2048, 80, 64, 1, 128, 64),    # mamba2-2.7b prefill
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, hd, G, S, chunk):
+    args = _scan_inputs(b, s, nh, hd, G, S, s, cuda)
+    want_y, want_st = ssd_scan_ref(*args, chunk=chunk)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert y.shape == want_y.shape and st.shape == want_st.shape
+    # fp32 sums in another order: 2e-4 of the largest magnitude
+    for got, want in ((y, want_y), (st, want_st)):
+        err = (got - want).abs().max().item()
+        assert err <= 2e-4 * want.abs().max().item(), err
+
+
+def test_ssd_scan_kernel_rejects_bad_arguments(cuda):
+    xdt, a_log, Bm, Cm = _scan_inputs(1, 32, 2, 8, 1, 4, 0, cuda)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(xdt.double(), a_log, Bm, Cm, chunk=32)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(xdt, a_log, Bm.bfloat16(), Cm, chunk=32)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_scan(xdt.transpose(2, 3).contiguous().transpose(2, 3),
+                         a_log, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_scan(xdt, a_log, Bm[:, :, :1].expand(1, 32, 3, 4)
+                         .contiguous(), Cm, chunk=32)
+
+
+def test_mamba2_on_the_card_matches_the_cpu(cuda):
+    cfg = reduce_config(get_config("mamba2-2.7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    gpu_params["layers"] = [
+        {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(cuda)) for k, v in lp.items()}
+        for lp in params["layers"]]
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 100))
+    outs = []
+    for dev, p in (("cpu", params), (cuda, gpu_params)):
+        before = ssd_ops.launches
+        logits, cache = tf.prefill(p, cfg, tokens=torch.from_numpy(
+            prompt).to(dev))
+        assert ssd_ops.launches == before + (cfg.num_layers
+                                              if dev != "cpu" else 0)
+        toks = [int(logits[0, -1].argmax())]
+        for i in range(5):
+            logits, cache = tf.decode_step(
+                p, cfg, torch.tensor([toks[-1]], device=dev), 100 + i, cache)
+            toks.append(int(logits[0].argmax()))
+        outs.append(toks)
     assert outs[0] == outs[1]
