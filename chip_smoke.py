@@ -17,22 +17,38 @@ JAX or of the JAX package.  Phases:
    the main path's shapes (``kv_restore`` bit-equal, including a real
    token in row 0 beside dropped tokens; ``paged_attention`` within
    1e-4, also at yi-34b's GQA head shape), with times beside the bound;
+   then the token-delta ops on the codec's real 240p planes of the
+   prefix (``pack_frames`` of a fetched chunk and of layer group 0's
+   whole prefix): counts set to 0, encode of each channel and the
+   chained one-frame decode, counts read; the results bit-equal to the
+   plain versions and to the numpy codec's ``ZIGZAG[plane_f -
+   plane_{f-1}]``, every frame rebuilt; then a random 64 x 1080 x 1920
+   stack and an unaligned 5 x 5 x 77 stack, each timed beside its bound;
 4. main path: a ``LiveEngine`` serves two requests that fetch the prefix
    and one plain request, 16 new tokens each; the kernels' launch counts
    are set to 0 just before and read just after, and must equal what the
    path implies; the restored pages must equal the codec's dequantized
    frames bit for bit;
-5. reference: the same engine at a reduced size on the card and on the
+5. virtual clock: the same weights and store behind a modeled WAN link
+   (a constant ``BandwidthTrace``) and a decode table sized to the real
+   blobs; one reuse request and one plain request, once with
+   ``fetch_mode="sync"`` and once with ``"async"`` (pipelined transmit,
+   decode and restore); per mode the counts are set to 0 before and read
+   after, ``kv_restore`` must equal one fetch's restores, the restored
+   pages must equal the codec's frames, the tokens must equal those of
+   phase 4 for the same prompts, and the modeled TTFT of async must be
+   below sync's, the plain request's below the reuse request's;
+6. reference: the same engine at a reduced size on the card and on the
    CPU (plain versions) must generate the same tokens;
-6. Mamba2 set-up: lwm-7b's weights are freed, then mamba2-2.7b at full
+7. Mamba2 set-up: lwm-7b's weights are freed, then mamba2-2.7b at full
    width (64 layers, d 2560, d_inner 5120, 80 SSM heads of dim 64, state
    128, vocab 50280) with random fp32 weights from a seeded
    ``torch.Generator``, and a 2048-token prefix with two 16-token
    suffixes from ``numpy.random.default_rng``;
-7. kernel: ``ssd_scan`` against its plain version on the card at the
+8. kernel: ``ssd_scan`` against its plain version on the card at the
    path's shapes (s 2048 and 2064, chunk 64) and at s 40, y and final
    state within 2e-4 of their largest magnitude, timed beside its bound;
-8. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
+9. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
    prefix; its recurrent state is snapshotted, encoded on the host,
    decoded, rebuilt on the card bit for bit, and two reuse requests
    (batched) feed their suffixes through ``decode_step`` and generate 16
@@ -41,7 +57,7 @@ JAX or of the JAX package.  Phases:
    just after and must be 2 prefills x 64 layers; the kernel's prefill
    logits must match the plain version's on the card within 2e-4 of the
    largest logit; the reuse-versus-exact-cache logit error is reported;
-9. reference: the same snapshot path at a reduced size on the card
+10. reference: the same snapshot path at a reduced size on the card
    (kernel) and on the CPU (plain version) must generate the same tokens.
 
 TF32 is switched off for matrix products and convolutions, so every fp32
@@ -68,13 +84,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.cluster.network import BandwidthTrace  # noqa: E402
 from repro_torch.cluster.storage import KVStore  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core.chunks import (  # noqa: E402
     decode_chunk_tokens, decode_state_snapshot, encode_state_snapshot,
     prefix_key)
 from repro_torch.core.codec import KVCodec  # noqa: E402
-from repro_torch.core.layout import IntraLayout  # noqa: E402
+from repro_torch.core.adaptive import DecodeTable  # noqa: E402
+from repro_torch.core.layout import (  # noqa: E402
+    IntraLayout, frame_geometry, pack_frames)
+from repro_torch.core.prediction import ZIGZAG  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
@@ -84,6 +104,9 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
+from repro_torch.kernels.token_delta.ref import (  # noqa: E402
+    token_delta_decode_frame_ref, token_delta_encode_ref)
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -104,6 +127,14 @@ MAMBA_PREFIX = 2048
 SCAN_CHUNK = 64               # apply_ssm_full's chunk
 SCAN_TOL = 2e-4               # of the largest |y| or |state|
 LOGIT_TOL = 2e-4              # of the largest |logit|
+BIG_STACK = (64, 1080, 1920)  # a bandwidth-sized uint8 stack, 133 MB
+ODD_STACK = (5, 5, 77)        # H*W not a multiple of 16
+# the virtual-clock phase: one host rANS decoder whose modeled latency per
+# 16-token chunk is about what the host codec takes per chunk on the card's
+# host (10-17 s for the prefix's 704 chunks, PERF.md), and a link at which
+# one chunk's transmit takes as long as its decode, so that pipelining the
+# two shows
+VIRTUAL_DECODE_S = 0.02
 
 
 def log(*a) -> None:
@@ -289,6 +320,141 @@ def paged_attention_case(dev, H, K, hd, ps, lens, seed):
                 bound_by=b_by, library_ms=library_ms)
 
 
+def prefix_planes(cfg, man):
+    """The codec's 240p planes of the prefix, as ``pack_frames`` lays them
+    out: (name, [F, FH, FW] uint8 per channel) for one fetched chunk and
+    for layer group 0's whole prefix of K packed as one chunk."""
+    lay = IntraLayout(cfg.num_kv_heads, cfg.head_dim, *man.layout)
+    codec = KVCodec(cfg.num_kv_heads, cfg.head_dim, lay)
+    group0 = [r for r in man.refs if r.kind == "k" and r.group == 0]
+    chunks = [codec.decode_chunk(man.blobs[(r.chunk_id, RESOLUTION)])
+              for r in group0]
+    out = []
+    for name, q in (("chunk", chunks[0]),
+                    ("group0", np.concatenate(chunks, axis=0))):
+        # the codec codes a group's (up to) 3 layers as 3 channels
+        q = np.concatenate([q, np.zeros((q.shape[0], 3 - q.shape[1])
+                                        + q.shape[2:], np.uint8)], axis=1)
+        geom = frame_geometry(q.shape[0], lay, RESOLUTION)
+        video = pack_frames(q, lay, geom)  # [F, FH, FW, 3]
+        out.append((name, [np.ascontiguousarray(video[..., c])
+                           for c in range(video.shape[-1])]))
+    return out
+
+
+def delta_bound(n_bytes: float):
+    """Bytes moved, and about three integer operations per byte."""
+    return bound(n_bytes, 3 * n_bytes)
+
+
+def token_delta_phase(dev, cfg, man):
+    planes = prefix_planes(cfg, man)
+    # the path: every channel plane encoded, then decoded frame by frame
+    torch.cuda.synchronize()
+    td_ops.encode_launches = 0
+    td_ops.decode_frame_launches = 0
+    n_enc = n_dec = 0
+    results = []
+    for name, chans in planes:
+        for c, plane in enumerate(chans):
+            video = torch.as_tensor(plane, device=dev)
+            zres = td_ops.token_delta_encode(video)
+            frames, prev = [], torch.zeros_like(video[0])
+            for f in range(video.shape[0]):
+                prev = td_ops.token_delta_decode_frame(prev, zres[f])
+                frames.append(prev)
+            n_enc += 1
+            n_dec += video.shape[0]
+            results.append((f"{name} channel {c}", plane, video, zres,
+                            frames))
+    torch.cuda.synchronize()
+    launches = {"token_delta_encode": td_ops.encode_launches,
+                "token_delta_decode_frame": td_ops.decode_frame_launches}
+    check(launches == {"token_delta_encode": n_enc,
+                       "token_delta_decode_frame": n_dec},
+          f"token_delta launches {launches}, calls {n_enc}, {n_dec}")
+    for what, plane, video, zres, frames in results:
+        # the codec's TEMPORAL candidate: ZIGZAG[plane_f - plane_{f-1}]
+        ref = np.concatenate([np.zeros_like(plane[:1]), plane[:-1]])
+        check(np.array_equal(zres.cpu().numpy(), ZIGZAG[plane - ref]),
+              f"token_delta_encode != the codec's residual ({what})")
+        check(torch.equal(zres, token_delta_encode_ref(video)),
+              f"token_delta_encode != plain version ({what})")
+        prev = torch.zeros_like(video[0])
+        for f, frame in enumerate(frames):
+            check(torch.equal(frame, video[f]),
+                  f"chained decode lost frame {f} ({what})")
+            check(torch.equal(frame, token_delta_decode_frame_ref(
+                prev, zres[f])), f"decode_frame != plain ({what}, {f})")
+            prev = frame
+    log(f"[kernel] token_delta on the prefix's 240p planes: "
+        + ", ".join(f"{name} {tuple(ch[0].shape)} x {len(ch)} channels"
+                    for name, ch in planes)
+        + f"; launches {launches}; bit-equal to the plain versions and the "
+        f"codec's ZIGZAG residuals, every frame rebuilt")
+    # a bandwidth-sized stack and an unaligned one, checked the same way
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    stacks = {}
+    for shape in (BIG_STACK, ODD_STACK):
+        video = torch.randint(0, 256, shape, generator=g, device=dev,
+                              dtype=torch.uint8)
+        e0, d0 = td_ops.encode_launches, td_ops.decode_frame_launches
+        zres = td_ops.token_delta_encode(video)
+        check(torch.equal(zres, token_delta_encode_ref(video)),
+              f"token_delta_encode != plain version at {shape}")
+        prev = torch.zeros_like(video[0])
+        for f in range(shape[0]):
+            frame = td_ops.token_delta_decode_frame(prev, zres[f])
+            check(torch.equal(frame, video[f])
+                  and torch.equal(frame, token_delta_decode_frame_ref(
+                      prev, zres[f])), f"decode_frame at {shape}, {f}")
+            prev = frame
+        check((td_ops.encode_launches - e0, td_ops.decode_frame_launches - d0)
+              == (1, shape[0]), f"token_delta launches at {shape}")
+        stacks[shape] = (video, zres)
+    log(f"[kernel] token_delta at {BIG_STACK} and {ODD_STACK}: bit-equal, "
+        f"every frame rebuilt")
+    # times: encode of the path's largest plane stack and of the
+    # bandwidth-sized stack; decode of two frames of each (first, last)
+    _, _, video, zres, _ = max(results, key=lambda r: r[2].numel())
+    big, big_z = stacks[BIG_STACK]
+    rows = []
+    for name, cases in (
+            ("token_delta_encode", [((video,), video.numel() * 2),
+                                    ((big,), big.numel() * 2)]),
+            ("token_delta_decode_frame",
+             [((zres[0], zres[-1]), zres[0].numel() * 3),
+              ((big_z[0], big_z[-1]), big_z[0].numel() * 3)])):
+        op = getattr(td_ops, name)
+        plain = (token_delta_encode_ref if name == "token_delta_encode"
+                 else token_delta_decode_frame_ref)
+        timed = []
+        for args, n_bytes in cases:
+            ms = graph_ms(lambda: op(*args))
+            eager_ms = time_ms(lambda: op(*args))
+            plain_ms = graph_ms(lambda: plain(*args))
+            b_ms, b_by = delta_bound(n_bytes)
+            log(f"[kernel] {name} {tuple(args[0].shape)}: device "
+                f"{ms * 1e3:.2f} us/launch (eager call {eager_ms * 1e3:.2f} "
+                f"us; plain version {plain_ms * 1e3:.2f} us; library: none "
+                f"(no single PyTorch call); bound {b_ms * 1e3:.3f} us by "
+                f"{b_by}, {n_bytes} bytes)")
+            timed.append((ms, plain_ms, b_ms, b_by))
+        ms, plain_ms, b_ms, b_by = timed[0]  # at the path's shape
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/kernels/token_delta/"
+                                "token_delta.cu",
+                         replaces="src/repro/kernels/token_delta/"
+                                  "token_delta.py:"
+                                  + ("39" if name == "token_delta_encode"
+                                     else "66"),
+                         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del stacks, big, big_z
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 def expected_restores(cfg, man) -> int:
@@ -412,7 +578,7 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain):
         f"{len(step_ms)} steps; "
         f"fetched {eng.stats.fetched_bytes} bytes, restore buffer high "
         f"water {eng.stats.restore_buffer_high_water} bytes")
-    outputs = [eng.outputs[r.rid] for r in reqs]
+    outputs = {r.rid: eng.outputs[r.rid] for r in reqs}
     del eng
     torch.cuda.empty_cache()
     # not asserted: int8 KV at full width with random weights may flip an
@@ -420,16 +586,107 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain):
     full, full_reqs = serve(dev, cfg, params, store, key, prompts, plain,
                             False)
     full.run()
-    for r, got in zip(full_reqs[:2], outputs[:2]):
+    for r in full_reqs[:2]:
+        same = full.outputs[r.rid] == outputs[r.rid]
         log(f"[main] rid {r.rid}: reuse generation "
-            f"{'matches' if full.outputs[r.rid] == got else 'differs from'}"
+            f"{'matches' if same else 'differs from'}"
             f" a full prefill of the same prompt")
     del full
     torch.cuda.empty_cache()
-    return launches
+    return launches, outputs
 
 
-# -- phase 5: agreement with the plain versions at a small size ---------------
+# -- phase 5: the virtual-clock fetch pipeline --------------------------------
+
+def virtual_net(man):
+    """The modeled link and decode table of phase 5: the table's chunk
+    size is the store's mean blob, so the pool scales its latency by
+    about 1, and the link moves a mean blob in ``VIRTUAL_DECODE_S``."""
+    sizes = [len(man.blobs[(r.chunk_id, RESOLUTION)]) for r in man.refs]
+    mean_bytes = float(np.mean(sizes))
+    table = DecodeTable(name="host-rans", n_decoders=1,
+                        latency={RESOLUTION: (VIRTUAL_DECODE_S,)},
+                        penalty={RESOLUTION: 0.0},
+                        chunk_size_mb={RESOLUTION: mean_bytes / 1e6})
+    gbps = mean_bytes * 8 / VIRTUAL_DECODE_S / 1e9
+    return BandwidthTrace.constant(gbps), table, gbps, mean_bytes
+
+
+def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
+                 wall_outputs):
+    key = prefix_key(prefix)
+    trace, table, gbps, mean_bytes = virtual_net(man)
+    log(f"[virtual] link {gbps:.6f} Gbps constant; decode table "
+        f"'{table.name}': 1 decoder, {VIRTUAL_DECODE_S * 1e3:.1f} ms per "
+        f"{RESOLUTION} chunk of {mean_bytes / 1e6:.6f} MB (the mean of "
+        f"{len(man.refs)} blobs); compute on the cost model's h20 "
+        f"(modeled times, not the card's)")
+    want_kv = expected_restores(cfg, man)
+    ttft = {}
+    for mode in ("sync", "async"):
+        eng = LiveEngine(params, cfg, store, n_pages=N_PAGES, device=dev,
+                         fetch_mode=mode, bandwidth=trace,
+                         decode_table=table)
+        reuse = eng.submit(prompts[0], reuse_prefix=key,
+                           reuse_tokens=PREFIX_TOKENS,
+                           max_new_tokens=NEW_TOKENS)
+        other = eng.submit(plain, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        kv_ops.launches = 0
+        pa_ops.launches = 0
+        t0 = time.perf_counter()
+        checked, steps, t_check = False, 0, 0.0
+        while eng.step():
+            steps += 1
+            check(steps < 100_000, f"{mode}: the engine does not finish")
+            if not checked and reuse.t_first_token is not None:
+                # the check decodes every chunk again on the host: its
+                # time is taken out of the run's wall time
+                t1 = time.perf_counter()
+                n_kv, n_pa = kv_ops.launches, pa_ops.launches
+                check_restored_pages(eng, cfg, man, reuse.rid)
+                check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
+                      "page check launched a kernel")
+                checked = True
+                t_check = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - t_check
+        launches = {"kv_restore": kv_ops.launches,
+                    "paged_attention": pa_ops.launches}
+        reqs = (reuse, other)
+        decode_steps = len({t for r in reqs for t in r.token_times[1:]})
+        want = {"kv_restore": want_kv,
+                "paged_attention": cfg.num_layers * decode_steps}
+        log(f"[virtual] {mode}: launches {launches}, expected {want} "
+            f"({decode_steps} decode steps)")
+        check(checked, f"{mode}: the restored pages were not checked")
+        check(launches == want, f"{mode}: launch counts differ")
+        check(len(eng.finished) == 2, f"{mode}: not every request finished")
+        for r, prompt_rid in ((reuse, 0), (other, 2)):
+            check(eng.outputs[r.rid] == wall_outputs[prompt_rid],
+                  f"{mode} rid {r.rid}: tokens {eng.outputs[r.rid]} differ "
+                  f"from the wall-clock phase's {wall_outputs[prompt_rid]}")
+        fetch = reuse.fetch_done - reuse.fetch_started
+        log(f"[virtual] {mode}: modeled TTFT reuse {reuse.ttft:.4f} s "
+            f"(modeled fetch+decode+restore {fetch:.4f} s, early admitted "
+            f"{reuse.early_admitted}), plain {other.ttft:.4f} s; "
+            f"prefill_stall_time {eng.stats.prefill_stall_time:.4f} s "
+            f"(modeled); wall {wall:.2f} s over {steps + 1} steps (page "
+            f"check {t_check:.2f} s not counted); "
+            f"fetched {eng.stats.fetched_bytes} bytes")
+        ttft[mode] = (reuse.ttft, other.ttft)
+        del eng
+        torch.cuda.empty_cache()
+    check(ttft["async"][0] < ttft["sync"][0],
+          f"async TTFT {ttft['async'][0]} not below sync {ttft['sync'][0]}")
+    check(ttft["async"][1] < ttft["async"][0],
+          "the plain request waited for the fetch in async mode")
+    log(f"[virtual] async/sync modeled reuse TTFT "
+        f"{ttft['async'][0] / ttft['sync'][0]:.4f}; tokens equal across "
+        f"modes and to phase 4's")
+
+
+# -- phase 6: agreement with the plain versions at a small size ---------------
 
 def small_reference(dev) -> None:
     cfg = reduce_config(get_config("lwm-7b"))
@@ -461,7 +718,7 @@ def small_reference(dev) -> None:
     log(f"[small] reduced lwm-7b on the card == on the CPU: {outs[1]}")
 
 
-# -- phase 6: Mamba2 at full width ---------------------------------------------
+# -- phase 7: Mamba2 at full width ---------------------------------------------
 
 def mamba_set_up(dev):
     cfg = get_config("mamba2-2.7b")
@@ -477,7 +734,7 @@ def mamba_set_up(dev):
     return cfg, params, prefix, prompts
 
 
-# -- phase 7: ssd_scan against its plain version ------------------------------
+# -- phase 8: ssd_scan against its plain version ------------------------------
 
 def scan_inputs(dev, b, s, nh, hd, G, S, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -543,7 +800,7 @@ def ssd_scan_phase(dev, cfg):
                 bound_by=b_by, library_ms=None)
 
 
-# -- phase 8: the Mamba2 path -------------------------------------------------
+# -- phase 9: the Mamba2 path -------------------------------------------------
 
 def generate(params, cfg, logits, cache, pos: int, n: int):
     """Greedy: the first token from ``logits`` [b, V], then ``n - 1``
@@ -672,7 +929,7 @@ def mamba_path(dev, cfg, params, prefix, prompts):
     return launches
 
 
-# -- phase 9: the snapshot path at a small size, card against CPU -------------
+# -- phase 10: the snapshot path at a small size, card against CPU ------------
 
 def small_mamba_reference(dev) -> None:
     cfg = reduce_config(get_config("mamba2-2.7b"))
@@ -740,9 +997,14 @@ def main() -> int:
     yi = get_config("yi-34b")
     paged_attention_case(dev, yi.num_heads, yi.num_kv_heads, yi.head_dim,
                          16, ctx, 3)
+    td_rows, td_launches = token_delta_phase(dev, cfg, man)
+    rows += td_rows
 
-    launches = main_path(dev, cfg, params, store, man, prefix, prompts,
-                         plain)
+    launches, wall_outputs = main_path(dev, cfg, params, store, man, prefix,
+                                       prompts, plain)
+    launches.update(td_launches)
+    virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
+                 wall_outputs)
     del params, store, man
     torch.cuda.empty_cache()
     small_reference(dev)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.core.chunks import ChunkRef, KVManifest
+from repro_torch.core.chunks import ChunkRef, KVManifest, layer_groups_of
 
 
 @dataclasses.dataclass
@@ -81,3 +81,23 @@ def build_plan(rid: int, manifest: KVManifest) -> FetchPlan:
     n_layers = sum(len(g) for g in manifest.layer_groups)
     return FetchPlan(rid=rid, manifest=manifest, chunks=ordered,
                      n_layers_total=n_layers)
+
+
+def synthetic_plan(rid: int, reuse_tokens: int, n_attn_layers: int,
+                   tokens_per_chunk: int) -> FetchPlan:
+    """Plan without a real manifest: chunk geometry only (byte sizes come
+    from the controller's hooks).  Used by the cluster simulator and by
+    controller unit tests."""
+    groups = layer_groups_of(max(n_attn_layers, 1))
+    per_group = max(1, -(-reuse_tokens // tokens_per_chunk))
+    chunks: List[PlannedChunk] = []
+    for g, layers in enumerate(groups):
+        for c in range(per_group):
+            t0 = c * tokens_per_chunk
+            t1 = max(t0 + 1, min(reuse_tokens, t0 + tokens_per_chunk))
+            for kind in ("k", "v"):
+                chunks.append(PlannedChunk(
+                    ref=ChunkRef(kind, g, c, t0, t1, tuple(layers)),
+                    sizes={}))
+    return FetchPlan(rid=rid, manifest=None, chunks=chunks,
+                     n_layers_total=sum(len(g) for g in groups))

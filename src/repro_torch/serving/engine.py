@@ -1,18 +1,33 @@
 """Live serving engine: real compute, real codec, real paged memory.
 
-The wall-clock path of the JAX package's ``LiveEngine``
-(``bandwidth=None``, ``fetch_mode="sync"``) over a flat ``KVStore``:
-fetching-aware scheduling, a synchronous fetch at dispatch whose chunks
-are decoded frame by frame on the host and restored into the paged cache
-by the ``kv_restore`` kernel, suffix prefill over the restored prefix KV,
-and continuously batched paged decode through the ``paged_attention``
-kernel.
+The JAX package's ``LiveEngine`` over a flat ``KVStore``:
+fetching-aware scheduling, fetches whose chunks are decoded frame by
+frame on the host and restored into the paged cache by the
+``kv_restore`` kernel, suffix prefill over the restored prefix KV, and
+continuously batched paged decode through the ``paged_attention``
+kernel.  Fetching runs through the event-driven
+`repro_torch.core.fetch_controller`.  Two operating modes:
+
+  * wall clock (default, ``bandwidth=None``): fetches complete
+    synchronously at dispatch, timestamps are ``time.monotonic()``.
+  * virtual clock (``bandwidth=`` a BandwidthTrace): network transmit
+    and decode latencies are modeled on a virtual clock while the codec
+    and paged-memory mechanics stay real.  ``fetch_mode="async"`` pumps
+    the controller from ``step()`` so restoration overlaps compute and a
+    request can start suffix prefill while later layer groups are still
+    in flight (Appx A.3 early admission); ``fetch_mode="sync"`` drains
+    the pipeline serially at dispatch, the pre-pipelining baseline.
+    Compute advances the clock by the analytic ``EngineCostModel``
+    (default: the ``h20`` chip), not by the card's own times.
+
+In virtual-clock mode the network is the WAN model of
+`repro_torch.cluster.network`: a ``SharedLink`` (``link_policy=``,
+``link_ramp=``), a seeded ``loss=`` `LossModel` and adaptive-RTO
+retransmission (``rto_mode=``); restoration stays bit-exact, only
+timing moves.
 
 The constructor takes every knob of the JAX engine so the two stay
-interchangeable; the knobs of the virtual-clock pipeline (``bandwidth``,
-``loss``, ``link_policy``, ``link_ramp``, ``rto_mode``,
-``use_table_sizes``, ``adaptive``, ``resolutions``, ``decode_table``,
-``cost``, ``fetch_mode="async"``), of the storage tier (``prefetch``, a
+interchangeable; the knobs of the storage tier (``prefetch``, a
 ``StorageCluster`` store), of fairness, of the fleet
 (``external_dispatch``) and of mesh sharding (``mesh``, ``mesh_shards``)
 raise ``NotImplementedError`` naming the slice of the port that brings
@@ -27,10 +42,16 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.cluster.costmodel import CHIPS, EngineCostModel
+from repro_torch.cluster.decodepool import DecodePool
+from repro_torch.cluster.network import LossModel, make_link
 from repro_torch.cluster.storage import KVStore
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adaptive import DecodeTable
 from repro_torch.core.codec import KVCodec
 from repro_torch.core.fetch import FetchPlan, PlannedChunk, build_plan
+from repro_torch.core.fetch_controller import (ActiveFetch, FetchController,
+                                               FetchHooks, PipelineConfig)
 from repro_torch.core.layout import IntraLayout
 from repro_torch.core.scheduler import FetchingAwareScheduler, Request
 from repro_torch.device import DeviceLike, resolve_device
@@ -41,8 +62,6 @@ from repro_torch.paged.cache import PagedKVCache
 from repro_torch.params import layer_params
 from repro_torch.serving import paged_model
 
-_VIRTUAL_CLOCK = "the virtual-clock fetch pipeline slice"
-
 
 @dataclasses.dataclass
 class EngineStats:
@@ -50,6 +69,7 @@ class EngineStats:
     restored_tokens: int = 0
     fetched_bytes: int = 0
     steps: int = 0
+    prefill_stall_time: float = 0.0  # virtual time spent waiting for KV
 
 
 def _later(knob: str, slice_name: str) -> NotImplementedError:
@@ -58,8 +78,29 @@ def _later(knob: str, slice_name: str) -> NotImplementedError:
         f"{slice_name} of the port")
 
 
+class _EngineHooks(FetchHooks):
+    """Real codec restoration driven by the controller's restore events."""
+
+    def __init__(self, engine: "LiveEngine"):
+        self.engine = engine
+
+    def restore_seconds(self, fetch: ActiveFetch, pc: PlannedChunk) -> float:
+        return 0.002  # frame-wise restoration cost (matches the simulator)
+
+    def on_restored(self, fetch: ActiveFetch, pc: PlannedChunk,
+                    now: float) -> None:
+        self.engine._restore_chunk(fetch.req, fetch.plan, pc)
+
+    def comp_times(self, req: Request):
+        eng = self.engine
+        if eng.cost is None:
+            return None
+        suffix = max(req.prompt_len - req.reuse_tokens, 1)
+        return eng.cost.layer_comp_times(suffix)
+
+
 class LiveEngine:
-    """Single-node engine over a dense model (real compute), wall clock."""
+    """Single-node engine over a dense model (real compute)."""
 
     def __init__(self, params, cfg: ModelConfig, store, *,
                  n_pages: int = 256, page_size: int = 16,
@@ -67,15 +108,20 @@ class LiveEngine:
                  resolution: str = "240p",
                  fetch_mode: str = "sync",
                  bandwidth=None,
-                 loss=None,
-                 link_policy: Optional[str] = None,
-                 link_ramp: Optional[str] = None,
-                 rto_mode: str = "adaptive",
-                 use_table_sizes: bool = False,
+                 loss: Optional[LossModel] = None,
+                 link_policy: Optional[str] = None,  # None -> "fair"
+                 link_ramp: Optional[str] = None,  # None -> "instant"
+                 rto_mode: str = "adaptive",  # or "fixed" (baseline)
+                 use_table_sizes: bool = False,  # model Appx A.2 sizes
+                 # ABR selection: None keeps the legacy rule (adaptive
+                 # iff a decode table is given); False pins
+                 # ``resolution`` even with a table
                  adaptive: Optional[bool] = None,
+                 # ladder the selector may pick from (None = the full
+                 # RESOLUTION_ORDER)
                  resolutions: Optional[Tuple[str, ...]] = None,
-                 decode_table=None,
-                 cost=None,
+                 decode_table: Optional[DecodeTable] = None,
+                 cost: Optional[EngineCostModel] = None,
                  prefetch=None,
                  fairness=None,
                  external_dispatch: bool = False,
@@ -87,17 +133,6 @@ class LiveEngine:
                  mesh=None, mesh_shards: Optional[int] = None,
                  device: DeviceLike = None):
         later = {
-            "bandwidth": (bandwidth is not None, _VIRTUAL_CLOCK),
-            "loss": (loss is not None, _VIRTUAL_CLOCK),
-            "link_policy": (link_policy is not None, _VIRTUAL_CLOCK),
-            "link_ramp": (link_ramp is not None, _VIRTUAL_CLOCK),
-            "rto_mode": (rto_mode != "adaptive", _VIRTUAL_CLOCK),
-            "use_table_sizes": (use_table_sizes, _VIRTUAL_CLOCK),
-            "adaptive": (adaptive is not None, _VIRTUAL_CLOCK),
-            "resolutions": (resolutions is not None, _VIRTUAL_CLOCK),
-            "decode_table": (decode_table is not None, _VIRTUAL_CLOCK),
-            "cost": (cost is not None, _VIRTUAL_CLOCK),
-            "fetch_mode": (fetch_mode != "sync", _VIRTUAL_CLOCK),
             "prefetch": (prefetch is not None,
                          "the storage-tier (staging and prefetch) slice"),
             "fairness": (fairness is not None, "the fairness slice"),
@@ -113,6 +148,15 @@ class LiveEngine:
                 f"LiveEngine store {type(store).__name__}: only the flat "
                 f"KVStore is ported; StorageCluster arrives with the "
                 f"storage-tier slice of the port")
+        if fetch_mode not in ("sync", "async"):
+            raise ValueError(f"fetch_mode {fetch_mode!r}: 'sync' or 'async'")
+        self.virtual = bandwidth is not None
+        if not self.virtual and (fetch_mode != "sync" or loss is not None
+                                 or link_policy is not None
+                                 or link_ramp is not None):
+            raise ValueError(
+                "WAN options (async fetch, loss=, link_policy=, link_ramp=) "
+                "need a bandwidth trace (virtual clock)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -124,16 +168,47 @@ class LiveEngine:
                                   device=self.device)
         self.sched = FetchingAwareScheduler(policy, max_running=max_running)
         self.resolution = resolution
+        self.fetch_mode = fetch_mode
         self.stats = EngineStats()
         self.prompts: Dict[int, np.ndarray] = {}
         self.outputs: Dict[int, List[int]] = {}
         self.finished: List[Request] = []
+        self._clock = 0.0
         self.on_token = on_token
+        self.cost = cost
+        self.ctrl: Optional[FetchController] = None
+        if self.virtual:
+            if self.cost is None:
+                self.cost = EngineCostModel(cfg, CHIPS["h20"], 1)
+            pool = DecodePool(decode_table) if decode_table else None
+            # concurrent fetches contend for one WAN link (fair or DRR
+            # split, optionally slow-start ramped) and survive seeded
+            # chunk loss via adaptive-RTO retransmission
+            link = make_link(bandwidth, policy=link_policy, loss=loss,
+                             ramp=link_ramp)
+            pipe_kw = {}
+            if resolutions is not None:
+                pipe_kw["resolutions"] = tuple(resolutions)
+            self.ctrl = FetchController(
+                self.sched, link, table=decode_table, pool=pool,
+                config=PipelineConfig(
+                    adaptive=(decode_table is not None if adaptive is None
+                              else adaptive),
+                    fixed_resolution=resolution,
+                    pipelined=fetch_mode == "async",
+                    layerwise_admission=(fetch_mode == "async"
+                                         and policy == "kvfetcher"),
+                    use_table_sizes=use_table_sizes,
+                    rto_mode=rto_mode, **pipe_kw),
+                hooks=_EngineHooks(self))
 
+    # -- time: virtual clock in modeled-network mode, else wall clock -------
     def now(self) -> float:
-        # the wall-clock engine stamps real times; replayed event logs
-        # come from the virtual-clock engine, which this slice lacks
-        return time.monotonic()  # repro-lint: allow(no-wall-clock)
+        # wall-clock mode stamps real times (fetches complete synchronously
+        # at dispatch); every replayed event log comes from virtual-clock
+        # mode, where this branch never runs
+        return self._clock if self.virtual \
+            else time.monotonic()  # repro-lint: allow(no-wall-clock)
 
     # -- intake -------------------------------------------------------------
     def submit(self, tokens: np.ndarray, reuse_prefix: Optional[str] = None,
@@ -155,13 +230,21 @@ class LiveEngine:
 
     # -- fetch dispatch -------------------------------------------------------
     def _start_fetch(self, req: Request) -> None:
-        """Resolve the request's prefix in the flat store and fetch it."""
+        """Resolve the request's prefix in the flat store and start its
+        fetch: at once on the wall clock, else through the controller."""
         man = self.store.lookup(req.prefix)
         if man is None:
             raise KeyError(f"prefix {req.prefix} not registered")
         plan = build_plan(req.rid, man)
         self.cache.add_seq(req.rid, req.prompt_len + req.max_new_tokens)
-        self._run_fetch_wall(req, plan)
+        if self.ctrl is None:
+            self._run_fetch_wall(req, plan)
+            return
+        self.ctrl.start(req, plan, self.now())
+        if self.fetch_mode == "sync":
+            # blocking baseline: the engine idles until the (serialized)
+            # pipeline finishes; the virtual clock absorbs the whole fetch
+            self._clock = max(self._clock, self.ctrl.drain(plan))
 
     def _run_fetch_wall(self, req: Request, plan: FetchPlan) -> None:
         """Fetch synchronously, stamping real timestamps (no network
@@ -220,6 +303,8 @@ class LiveEngine:
             for layer, (k, v) in enumerate(kvs):
                 self.cache.write_prefill(layer, req.rid, k[0], v[0])
             logits = logits[0]
+            if self.virtual:
+                self._clock += self.cost.prefill_time(len(tokens))
         info = self.cache.seqs[req.rid]
         info.context_len = len(tokens)
         nxt = int(torch.argmax(logits))
@@ -230,10 +315,28 @@ class LiveEngine:
         if self.on_token is not None:
             self.on_token(req, nxt, req.t_first_token)
 
+    def _await_layer(self, req: Request, layer: int) -> None:
+        """Async mode: block (on the virtual clock) until ``layer``'s
+        prefix KV is restored; pipeline stalls are accounted as stall
+        time, zero whenever the Appx A.3 condition held at admission."""
+        if self.ctrl is None:
+            return
+        while req.fetch_done is None and req.layers_ready <= layer:
+            t = self.ctrl.pump_next()
+            if t is None:
+                if req.fetch_done is not None or req.layers_ready > layer:
+                    break
+                raise RuntimeError(
+                    f"rid={req.rid}: layer {layer} KV never arrived")
+            if t > self._clock:
+                self.stats.prefill_stall_time += t - self._clock
+                self._clock = t
+
     def _suffix_prefill(self, req: Request,
                         tokens: np.ndarray) -> torch.Tensor:
         """Prefill only the non-reused suffix, attending over restored
-        prefix KV gathered from the paged cache."""
+        prefix KV gathered from the paged cache.  Layer k's compute waits
+        for layer k's restore event only (layer-wise pipeline)."""
         cfg = self.cfg
         dev = self.device
         n_pre = req.reuse_tokens
@@ -247,8 +350,11 @@ class LiveEngine:
         kpos = torch.cat([pre_pos, positions], dim=1)
         rows = self.cache.slots_tensor(
             self.cache.slots_for(req.rid, np.arange(n_pre))).long()
+        comp = (self.cost.layer_comp_times(s) if self.virtual else
+                [0.0] * cfg.num_layers)
         x = self.params["embed"][suffix]
         for i in range(cfg.num_layers):
+            self._await_layer(req, i)
             lp = layer_params(self.params, cfg, i)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = paged_model._qkv(lp["attn"], h, cfg, positions)
@@ -263,11 +369,14 @@ class LiveEngine:
             x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + paged_model._mlp_out(lp, h2, cfg)
+            self._clock += comp[i]
         return lm_logits(self.params, cfg, x[:, -1:, :])[0, 0]
 
     # -- main loop ------------------------------------------------------------
     def step(self) -> bool:
         """One engine iteration. Returns False when idle and done."""
+        if self.ctrl is not None:
+            self.ctrl.pump(self.now())
         self.sched.schedule(self.now())
         for req in self.sched.take_fetches():
             self._start_fetch(req)
@@ -289,6 +398,10 @@ class LiveEngine:
             logits = paged_model.decode_paged(
                 self.params, self.cfg, toks, positions, self.cache, seq_ids)
             nxt = torch.argmax(logits, dim=-1).tolist()
+            if self.virtual:
+                ctx = float(np.mean([len(self.prompts[r.rid]) + r.tokens_out
+                                     for r in active]))
+                self._clock += self.cost.decode_step_time(len(active), ctx)
             tnow = self.now()
             for i, req in enumerate(active):
                 self.outputs[req.rid].append(int(nxt[i]))
@@ -301,6 +414,14 @@ class LiveEngine:
                 self.sched.finish(req, self.now())
                 self.cache.free_seq(req.rid)
                 self.finished.append(req)
+        # engine idle but fetches in flight: jump the virtual clock to the
+        # next pipeline event so waiting requests make progress
+        if self.ctrl is not None and not self.sched.running and not active:
+            t = self.ctrl.next_event_time()
+            if t is not None:
+                self._clock = max(self._clock, t)
+                self.ctrl.pump(self._clock)
+                self.sched.schedule(self._clock)
         self.stats.steps += 1
         return bool(self.sched.running or self.sched.waiting
                     or self.sched.waiting_for_kv)

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.cluster.network import BandwidthTrace  # noqa: E402
 from repro_torch.cluster.storage import KVStore  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
@@ -19,6 +20,9 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
+from repro_torch.kernels.token_delta.ref import (  # noqa: E402
+    token_delta_decode_frame_ref, token_delta_encode_ref)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.core.chunks import prefix_key  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -220,3 +224,97 @@ def test_mamba2_on_the_card_matches_the_cpu(cuda):
             toks.append(int(logits[0].argmax()))
         outs.append(toks)
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 240, 432),     # 240p planes, H*W a multiple of 16
+    (5, 5, 77),        # H*W = 385: unaligned reference, a ragged tail
+    (3, 3, 50),        # a vector straddles the end of frame 0
+    (1, 1, 7),         # less than one vector
+    (8, 1080, 1920),   # 1080p planes
+], ids=lambda s: "x".join(map(str, s)))
+def test_token_delta_kernels_bit_equal(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    video = torch.randint(0, 256, shape, generator=g, device=cuda,
+                          dtype=torch.uint8)
+    n_enc, n_dec = td_ops.encode_launches, td_ops.decode_frame_launches
+    zres = td_ops.token_delta_encode(video)
+    assert torch.equal(zres, token_delta_encode_ref(video))
+    prev = torch.zeros(shape[1:], dtype=torch.uint8, device=cuda)
+    for f in range(shape[0]):  # the chained one-frame decode
+        frame = td_ops.token_delta_decode_frame(prev, zres[f])
+        assert torch.equal(frame, token_delta_decode_frame_ref(prev,
+                                                               zres[f]))
+        assert torch.equal(frame, video[f])
+        prev = frame
+    torch.cuda.synchronize()
+    assert td_ops.encode_launches == n_enc + 1
+    assert td_ops.decode_frame_launches == n_dec + shape[0]
+
+
+def test_token_delta_kernels_on_unaligned_views(cuda):
+    """Views that start one byte into their storage take the scalar path
+    and still agree bit for bit."""
+    base = torch.randint(0, 256, (3 * 64 * 64 + 1,), dtype=torch.uint8,
+                         device=cuda)
+    video = base[1:].view(3, 64, 64)
+    assert video.data_ptr() % 16 != 0 and video.is_contiguous()
+    assert torch.equal(td_ops.token_delta_encode(video),
+                       token_delta_encode_ref(video))
+    prev, zres = base[1:4097].view(64, 64), base[4097:8193].view(64, 64)
+    assert torch.equal(td_ops.token_delta_decode_frame(prev, zres),
+                       token_delta_decode_frame_ref(prev, zres))
+
+
+def test_token_delta_kernels_reject_bad_arguments(cuda):
+    video = torch.zeros((2, 8, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        td_ops.token_delta_encode(video.to(torch.int32))
+    with pytest.raises(ValueError):
+        td_ops.token_delta_encode(video.transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        td_ops.token_delta_encode(video[0])  # not [F, H, W]
+    with pytest.raises(TypeError):
+        td_ops.token_delta_decode_frame(video[0].float(), video[1])
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frame(video[0], video[1, :4])  # shapes
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frame(video[0].cpu(), video[1])
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frame(video[0], video[1].t())
+
+
+def test_virtual_clock_engine_on_the_card_matches_the_cpu(cuda):
+    """The async virtual-clock engine gives the same tokens and the same
+    virtual token times on the card (kernels) as on the CPU."""
+    from repro_torch.core.adaptive import DecodeTable
+    cfg = reduce_config(get_config("lwm-7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    gpu_params["layers"] = [
+        {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(cuda)) for k, v in lp.items()}
+        for lp in params["layers"]]
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    full = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 8)])
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
+    res = ("240p", "480p")
+    table = DecodeTable(name="test", n_decoders=2,
+                        latency={r: (0.04, 0.05) for r in res},
+                        penalty={r: 0.0 for r in res},
+                        chunk_size_mb={r: 0.004 for r in res})
+    logs = []
+    for dev, p in (("cpu", params), (cuda, gpu_params)):
+        store = KVStore()
+        store.register_prefix(prefix, kv_k, kv_v, tokens_per_chunk=16,
+                              resolutions=("240p",))
+        eng = LiveEngine(p, cfg, store, device=dev, fetch_mode="async",
+                         bandwidth=BandwidthTrace.constant(0.0006),
+                         decode_table=table)
+        r = eng.submit(full, reuse_prefix=prefix_key(prefix),
+                       reuse_tokens=48, max_new_tokens=4)
+        eng.run()
+        logs.append((eng.outputs[r.rid], r.token_times,
+                     eng.stats.restored_tokens))
+    assert logs[0] == logs[1]

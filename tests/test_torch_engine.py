@@ -1,7 +1,8 @@
 """The port's LiveEngine on the CPU: the torch twin of
 tests/test_live_engine.py::test_engine_reuse_matches_full_prefill, run
 against the port's own KVStore and held against the JAX LiveEngine on the
-same submits; plus its refusal of the knobs that later slices bring."""
+same submits; each knob of the virtual-clock pipeline held against the
+JAX engine; and the refusal of the knobs that later slices bring."""
 import jax
 import numpy as np
 import pytest
@@ -30,12 +31,12 @@ def torch_params(tiny_cfg, tiny_params):
 def stores(tiny_cfg, torch_params):
     """Factory: the port's donor KV for ``prefix``, registered in the
     port's KVStore and (the same arrays) in the JAX one."""
-    def _make(prefix):
+    def _make(prefix, **kw):
         kv_k, kv_v = paged_model.donor_prefix_kv(torch_params, tiny_cfg,
                                                  prefix)
         ours, ref = KVStore(), JaxKVStore()
-        ours.register_prefix(prefix, kv_k, kv_v, **STORE_KW)
-        ref.register_prefix(prefix, kv_k, kv_v, **STORE_KW)
+        ours.register_prefix(prefix, kv_k, kv_v, **{**STORE_KW, **kw})
+        ref.register_prefix(prefix, kv_k, kv_v, **{**STORE_KW, **kw})
         assert ours.stored_bytes() == ref.stored_bytes()
         return ours, ref, prefix_key(prefix)
     return _make
@@ -105,13 +106,104 @@ def test_engine_mixed_batch_matches_jax(tiny_cfg, tiny_params, torch_params,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("bandwidth", object()), ("fairness", object()), ("loss", object()),
-    ("prefetch", object()), ("decode_table", object()), ("mesh", object()),
-    ("mesh_shards", 2), ("external_dispatch", True), ("fetch_mode", "async"),
+    ("fairness", object()), ("prefetch", object()), ("mesh", object()),
+    ("mesh_shards", 2), ("external_dispatch", True),
 ])
 def test_engine_refuses_knobs_of_later_slices(knob, value, tiny_cfg,
                                               torch_params):
     with pytest.raises(NotImplementedError, match=knob):
+        LiveEngine(torch_params, tiny_cfg, KVStore(), device="cpu",
+                   **{knob: value})
+
+
+RES = ("240p", "480p", "640p", "1080p")
+
+
+def _table(mod):
+    return mod.DecodeTable(
+        name="live-test", n_decoders=2,
+        latency={r: (0.04, 0.05) for r in RES},
+        penalty={"240p": 0.01, "480p": 0.008, "640p": 0.004, "1080p": 0.0},
+        chunk_size_mb={r: 0.004 for r in RES})
+
+
+#: each knob of the virtual-clock pipeline, as a factory of its value from
+#: (adaptive module, network module, costmodel module, config)
+VIRTUAL_KNOBS = {
+    "bandwidth": lambda a, n, c, cfg: n.BandwidthTrace.constant(0.0006),
+    "loss": lambda a, n, c, cfg: n.LossModel.bernoulli(0.3, seed=4),
+    "link_policy": lambda a, n, c, cfg: "drr",
+    "link_ramp": lambda a, n, c, cfg: "slowstart",
+    "rto_mode": lambda a, n, c, cfg: "fixed",
+    "use_table_sizes": lambda a, n, c, cfg: True,
+    "adaptive": lambda a, n, c, cfg: True,
+    "resolutions": lambda a, n, c, cfg: ("480p", "1080p"),
+    "decode_table": lambda a, n, c, cfg: _table(a),
+    "cost": lambda a, n, c, cfg: c.EngineCostModel(cfg, c.CHIPS["a100"], 2),
+    "fetch_mode": lambda a, n, c, cfg: "async",
+}
+
+
+@pytest.mark.parametrize("knob", sorted(VIRTUAL_KNOBS))
+def test_engine_takes_virtual_clock_knob_as_jax(knob, tiny_cfg, tiny_params,
+                                                torch_params, stores):
+    """Each knob of the virtual-clock pipeline is live: on a trace, with
+    the knob set, the port's engine gives the JAX engine's tokens,
+    virtual token times, stall time, switch events and restore counts."""
+    import repro.cluster.costmodel as j_cost
+    import repro.cluster.network as j_net
+    import repro.core.adaptive as j_adaptive
+    import repro_torch.cluster.costmodel as t_cost
+    import repro_torch.cluster.network as t_net
+    import repro_torch.core.adaptive as t_adaptive
+
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, tiny_cfg.vocab_size, 32)
+    full = np.concatenate([prefix, rng.integers(0, tiny_cfg.vocab_size, 4)])
+    plain = rng.integers(0, tiny_cfg.vocab_size, 8)
+    ours, ref, key = stores(prefix, resolutions=("240p", "480p", "1080p"))
+    logs = []
+    for eng_cls, params, store, mods, kw in (
+            (JaxLiveEngine, tiny_params, ref, (j_adaptive, j_net, j_cost),
+             {}),
+            (LiveEngine, torch_params, ours, (t_adaptive, t_net, t_cost),
+             {"device": "cpu"})):
+        knobs = {"bandwidth": VIRTUAL_KNOBS["bandwidth"](*mods, tiny_cfg)}
+        if knob in ("adaptive", "resolutions", "use_table_sizes"):
+            knobs["decode_table"] = _table(mods[0])  # what they steer
+        knobs[knob] = VIRTUAL_KNOBS[knob](*mods, tiny_cfg)
+        eng = eng_cls(params, tiny_cfg, store, **knobs, **kw)
+        reqs = [eng.submit(full, reuse_prefix=key, reuse_tokens=32,
+                           max_new_tokens=2),
+                eng.submit(plain, max_new_tokens=2)]
+        eng.run()
+        assert all(r.t_first_token is not None for r in reqs)
+        logs.append(dict(
+            outputs=[eng.outputs[r.rid] for r in reqs],
+            token_times=[list(r.token_times) for r in reqs],
+            stall=eng.stats.prefill_stall_time,
+            switches=list(eng.ctrl.resolution_switches),
+            retransmits=eng.ctrl.retransmits_total,
+            restored=eng.stats.restored_tokens,
+            fetched=eng.stats.fetched_bytes))
+    assert logs[1] == logs[0]
+    assert logs[1]["restored"] == 32 * 2
+    if knob == "loss":
+        assert logs[1]["retransmits"] > 0
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("fetch_mode", "async"), ("loss", object()), ("link_policy", "drr"),
+    ("link_ramp", "slowstart"),
+])
+def test_wall_clock_engine_refuses_wan_options_as_jax(knob, value, tiny_cfg,
+                                                      tiny_params,
+                                                      torch_params):
+    """Without a bandwidth trace the WAN options are refused, as by the
+    JAX engine (which asserts)."""
+    with pytest.raises(AssertionError, match="need a bandwidth trace"):
+        JaxLiveEngine(tiny_params, tiny_cfg, JaxKVStore(), **{knob: value})
+    with pytest.raises(ValueError, match="need a bandwidth trace"):
         LiveEngine(torch_params, tiny_cfg, KVStore(), device="cpu",
                    **{knob: value})
 
