@@ -16,7 +16,9 @@ JAX or of the JAX package.  Phases:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (``kv_restore`` bit-equal, including a real
    token in row 0 beside dropped tokens; ``paged_attention`` within
-   1e-4, also at yi-34b's GQA head shape), with times beside the bound;
+   1e-4, also at yi-34b's GQA head shape, with the number of page-axis
+   splits and of CUDA kernels one op call launches), with times beside
+   the bound;
    then the token-delta ops on the codec's real 240p planes of the
    prefix (``pack_frames`` of a fetched chunk and of layer group 0's
    whole prefix): counts set to 0, encode of each channel and the
@@ -47,7 +49,9 @@ JAX or of the JAX package.  Phases:
    suffixes from ``numpy.random.default_rng``;
 8. kernel: ``ssd_scan`` against its plain version on the card at the
    path's shapes (s 2048 and 2064, chunk 64) and at s 40, y and final
-   state within 2e-4 of their largest magnitude, timed beside its bound;
+   state within 2e-4 of their largest magnitude, timed beside its bound
+   (the larger of its bytes and its 3xTF32 tensor-core operations, with
+   the fp32 SIMT figure beside it) and the kernels one op call launches;
 9. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
    prefix; its recurrent state is snapshotted, encoded on the host,
    decoded, rebuilt on the card bit for bit, and two reuse requests
@@ -122,6 +126,7 @@ RESOLUTION = "240p"
 N_PAGES = 128
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
 ATTN_TOL = 1e-4
 MAMBA_PREFIX = 2048
 SCAN_CHUNK = 64               # apply_ssm_full's chunk
@@ -175,10 +180,25 @@ def graph_ms(fn, iters: int = 100, reps: int = 5) -> float:
     return time_ms(graph.replay, iters=1, reps=reps) / iters
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernels_per_call(fn) -> int:
+    """CUDA kernels that one call of ``fn`` launches, as the profiler
+    sees them on the device (0 if it saw none)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 # -- phase 2: model, donor, store --------------------------------------------
@@ -284,6 +304,9 @@ def paged_attention_case(dev, H, K, hd, ps, lens, seed):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(err <= ATTN_TOL, f"paged_attention kernel off by {err}")
+    n_split = pa_ops.plan_splits(B, H, K, bps, pa_ops._sm_count(q.device))
+    n_kernels = kernels_per_call(
+        lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
     ms = graph_ms(lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
     eager_ms = time_ms(lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
     plain_ms = graph_ms(lambda: paged_attention_ref(q, kp, vp, bt, cl))
@@ -307,7 +330,11 @@ def paged_attention_case(dev, H, K, hd, ps, lens, seed):
         + 4 * sum(-(-n // ps) for n in lens) + 4 * B
     b_ms, b_by = bound(n_bytes, 4 * ctx * H * hd + 5 * ctx * H)
     log(f"[kernel] paged_attention H={H} K={K} hd={hd} ps={ps} ctx={lens}: "
-        f"max_abs_err {err:.3g}, device {ms * 1e3:.2f} us/launch (eager "
+        f"n_split {n_split} "
+        f"({B * K * -(-(H // K) // pa_ops.HEAD_TILE) * n_split} blocks), "
+        f"{n_kernels} "
+        f"CUDA kernels per op call; "
+        f"max_abs_err {err:.3g}, device {ms * 1e3:.2f} us/call (eager "
         f"call {eager_ms * 1e3:.2f} us; plain version {plain_ms * 1e3:.2f} "
         f"us; SDPA on K/V already gathered {library_ms * 1e3:.2f} us; bound "
         f"{b_ms * 1e3:.3f} us by {b_by})")
@@ -748,17 +775,20 @@ def scan_inputs(dev, b, s, nh, hd, G, S, seed):
 
 
 def scan_bound(b, s, nh, hd, G, S, Q):
-    """(ms, "bytes" | "operations") for one scan: inputs read once and
-    outputs written once; the products the function needs: C.B^T once per
-    group (lower triangle with its diagonal), and per head M.X (lower
-    triangle), the inter-chunk term and the state update."""
+    """(ms, "bytes" | "operations", fp32 SIMT ms) for one scan: inputs
+    read once and outputs written once; the products the function needs:
+    C.B^T once per group (lower triangle with its diagonal), and per head
+    M.X (lower triangle), the inter-chunk term and the state update.  The
+    kernel forms them in 3xTF32 on the tensor cores, three TF32 products
+    each; the third value is the same work in fp32 outside them."""
     c = -(-s // Q)
     tri = Q * (Q + 1) // 2
     n_bytes = 4 * (2 * b * s * nh * hd + b * s * nh + 2 * b * s * G * S
                    + b * nh * hd * S)
     n_flops = 2 * b * c * (G * tri * S
                            + nh * (tri * hd + 2 * Q * S * hd))
-    return bound(n_bytes, n_flops)
+    ms, by = bound(n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
+    return ms, by, n_flops / FP32_FLOPS_PER_S * 1e3
 
 
 def ssd_scan_phase(dev, cfg):
@@ -782,17 +812,24 @@ def ssd_scan_phase(dev, cfg):
                 f"largest {scale:.3g}")
         if s == MAMBA_PREFIX:
             timed = args
+    n_kernels = kernels_per_call(
+        lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK))
     ms = graph_ms(lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK),
                   iters=20)
     eager_ms = time_ms(lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK),
                        iters=20)
     plain_ms = graph_ms(lambda: ssd_scan_ref(*timed, chunk=SCAN_CHUNK),
                         iters=5)
-    b_ms, b_by = scan_bound(1, MAMBA_PREFIX, nh, hd, G, S, SCAN_CHUNK)
-    log(f"[kernel] ssd_scan s={MAMBA_PREFIX}: device {ms * 1e3:.2f} "
-        f"us/launch (eager call {eager_ms * 1e3:.2f} us; plain version "
+    b_ms, b_by, simt_ms = scan_bound(1, MAMBA_PREFIX, nh, hd, G, S,
+                                     SCAN_CHUNK)
+    piece, slices = ssd_ops.plan(SCAN_CHUNK, hd)
+    log(f"[kernel] ssd_scan s={MAMBA_PREFIX}: {nh * slices} blocks ({slices} "
+        f"hd slices per head, pieces of {piece}), {n_kernels} CUDA kernels "
+        f"per op call; device {ms * 1e3:.2f} "
+        f"us/call (eager call {eager_ms * 1e3:.2f} us; plain version "
         f"{plain_ms * 1e3:.2f} us; no single PyTorch call computes it; "
-        f"bound {b_ms * 1e3:.2f} us by {b_by})")
+        f"bound {b_ms * 1e3:.2f} us by {b_by} in 3xTF32 at 495 TFLOP/s, "
+        f"fp32 SIMT {simt_ms * 1e3:.2f} us)")
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/ssd_scan.py:63",

@@ -1,5 +1,9 @@
 """Public Mamba2 chunked SSD scan op: the plain version on CPU tensors, the
-CUDA kernel (``ssd_scan.cu``) on CUDA tensors."""
+CUDA kernel (``ssd_scan.cu``) on CUDA tensors.
+
+On the card one call is two launches (``ssd_scan.cu``): C.B^T of every
+chunk and group into fp32 scratch, then the scan over b * nh * slices
+blocks (``plan``); every product in 3xTF32 on the tensor cores."""
 from __future__ import annotations
 
 import ctypes
@@ -11,14 +15,16 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-#: kernel launches so far; a run resets it to 0 and reads it back to show
-#: which of its calls went through the kernel
+#: op calls that went through the CUDA kernel so far; a run resets it to
+#: 0 and reads it back to show which of its calls used it
 launches = 0
 
 #: the kernel's limits: head_dim, state and chunk length each at most this
 MAX_DIM = 128
 #: shared memory one block may use on an H100 (bytes)
 MAX_SMEM = 232_448
+#: the longest piece of a chunk the kernel runs at once
+MAX_PIECE = 64
 
 _fn = None
 
@@ -28,19 +34,28 @@ def _launcher():
     if _fn is None:
         fn = build.load("ssd_scan").ssd_scan_f32
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def plan(Q: int, hd: int) -> Tuple[int, int]:
+    """(piece, hd slices per head) of the kernel: a chunk longer than
+    MAX_PIECE runs as two halves, and head_dim is split in two (two
+    blocks per head) when it is a multiple of 16."""
+    return (Q if Q <= MAX_PIECE else -(-Q // 2)), (2 if hd % 16 == 0 else 1)
+
+
 def smem_bytes(Q: int, hd: int, S: int) -> int:
-    """Shared memory of one block: X [Q, hd], B [Q, S+1], a row tile of C
-    [T, S+1] and of the decay-weighted scores [T, Q] (T = min(Q, 64)), the
-    state [hd, S+1] and three [Q] vectors, all fp32 (``ssd_scan.cu``)."""
-    T = min(Q, 64)
-    return 4 * (Q * hd + Q * (S + 1) + T * (S + 1) + T * Q
-                + hd * (S + 1) + 3 * Q)
+    """Shared memory of one scan block (``ssd_scan.cu``), all fp32, with
+    the piece Qk and the slice P = hd / slices each padded as the kernel
+    pads them: B and C [Qk, S + 4], X [Qk, P + 8], C.B^T [Qk, Qk + 4],
+    the state slice [P, S + 4] and four [Qk] vectors."""
+    Qk, ks = plan(Q, hd)
+    QP, SP, PP = -(-Qk // 16) * 16, -(-S // 8) * 8, -(-(hd // ks) // 16) * 16
+    return 4 * (2 * QP * (SP + 4) + QP * (PP + 8) + QP * (QP + 4)
+                + PP * (SP + 4) + 4 * QP)
 
 
 def _check(xdt, a_log, Bm, Cm, Q: int) -> None:
@@ -108,9 +123,15 @@ def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
         Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
         y = torch.empty_like(xdt)
+    piece, _ = plan(Q, hd)
+    QP = -(-piece // 16) * 16
+    # C.B^T of every piece of every group, written by the first kernel
+    cb = torch.empty(b * -(-(s + pad) // piece) * G * QP * QP,
+                     dtype=torch.float32, device=xdt.device)
     err = _launcher()(xdt.data_ptr(), a_log.data_ptr(), Bm.data_ptr(),
-                      Cm.data_ptr(), y.data_ptr(), state.data_ptr(), b,
-                      s + pad, nh, hd, G, S, Q, xdt.device.index,
+                      Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                      cb.data_ptr(), b, s + pad, nh, hd, G, S, Q,
+                      xdt.device.index,
                       torch.cuda.current_stream(xdt.device).cuda_stream)
     build.check(err, "ssd_scan")
     global launches

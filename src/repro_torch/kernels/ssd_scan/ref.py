@@ -2,7 +2,9 @@
 of ``repro/models/ssm.py::ssd_chunked`` (the oracle of the TPU kernel).
 
 The arithmetic lives here once: ``repro_torch.models.ssm`` imports
-``ssd_chunked`` from this module, never the other way round.
+``ssd_chunked`` from this module, never the other way round.  The 3xTF32
+helpers at the end emulate the CUDA kernel's tensor-core arithmetic for
+the tests; no path calls them.
 """
 from __future__ import annotations
 
@@ -106,3 +108,61 @@ def ssd_scan_ref(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     """xdt [b,s,nh,hd] (dt-folded); a_log [b,s,nh]; Bm/Cm [b,s,G,S].
     Returns (y [b,s,nh,hd] fp32, final_state [b,nh,hd,S] fp32)."""
     return ssd_chunked(xdt, a_log, Bm, Cm, chunk=chunk)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values cut to TF32 (the sign, the exponent and the top 10
+    mantissa bits), as the kernel's ``split_tf32`` masks them."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's tensor cores form it: each operand split into
+    its TF32 truncation and the remainder's TF32 truncation,
+    a_lo b_hi + a_hi b_lo + a_hi b_hi with exact products summed in fp32
+    (a_lo b_lo dropped)."""
+    ah = tf32_truncate(a)
+    al = tf32_truncate(a - ah)
+    bh = tf32_truncate(b)
+    bl = tf32_truncate(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_scan_3xtf32_ref(xdt: torch.Tensor, a_log: torch.Tensor,
+                        Bm: torch.Tensor, Cm: torch.Tensor,
+                        chunk: int = 128
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's arithmetic on the CPU, for the tests: chunks run
+    in pieces of at most 64 steps, and every product goes through
+    ``mm_3xtf32``.  Same arguments and results as ``ssd_scan_ref``."""
+    b, s, nh, hd = xdt.shape
+    G, S = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, s)
+    Qk = Q if Q <= 64 else -(-Q // 2)  # pieces of at most 64 steps
+    pad = -(-s // Qk) * Qk - s  # a = 0, x = 0 leave the state intact
+    hpg = nh // G
+    x = F.pad(xdt, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
+    a = F.pad(a_log, (0, 0, 0, pad)).permute(0, 2, 1).to(torch.float32)
+    Bh = F.pad(Bm, (0, 0, 0, 0, 0, pad)).repeat_interleave(
+        hpg, dim=2).permute(0, 2, 1, 3)
+    Ch = F.pad(Cm, (0, 0, 0, 0, 0, pad)).repeat_interleave(
+        hpg, dim=2).permute(0, 2, 1, 3)
+    lower = torch.tril(torch.ones(Qk, Qk, dtype=torch.bool))
+    st = torch.zeros(b, nh, hd, S, dtype=torch.float32)
+    ys = []
+    for c0 in range(0, s + pad, Qk):
+        X, A = x[:, :, c0:c0 + Qk], a[:, :, c0:c0 + Qk]
+        Bc, Cc = Bh[:, :, c0:c0 + Qk], Ch[:, :, c0:c0 + Qk]
+        acs = torch.cumsum(A, dim=-1)
+        dif = acs[..., :, None] - acs[..., None, :]
+        M = torch.exp(torch.where(lower, dif, -torch.inf)) \
+            * mm_3xtf32(Cc, Bc.transpose(-1, -2))
+        y = torch.exp(acs)[..., None] * mm_3xtf32(Cc, st.transpose(-1, -2)) \
+            + mm_3xtf32(M, X)
+        dte = torch.exp(acs[..., -1:] - acs)
+        st = torch.exp(acs[..., -1])[..., None, None] * st \
+            + mm_3xtf32(X.transpose(-1, -2), dte[..., None] * Bc)
+        ys.append(y)
+    y = torch.cat(ys, dim=2)[:, :, :s].permute(0, 2, 1, 3).contiguous()
+    return y, st

@@ -128,6 +128,58 @@ def test_paged_attention_kernel_marks_bad_pages_nan(cuda):
     assert torch.isnan(out).all()
 
 
+def _paged_case(H, K, hd, ps, lens, bps, seed, device):
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    P = B * bps + 3
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    q, kp, vp = f(B, H, hd), f(P, ps, K, hd), f(P, ps, K, hd)
+    bt = rng.permutation(P)[:B * bps].reshape(B, bps).astype(np.int32)
+    return q, kp, vp, bt, torch.tensor(lens, dtype=torch.int32,
+                                       device=device)
+
+
+@pytest.mark.parametrize("H,K,hd,ps,lens,bps,splits", [
+    (8, 2, 64, 16, [4000, 2500], 250, ">1"),   # long: many splits
+    (32, 32, 128, 16, [300] * 12, 19, "1"),    # B*K = 384: one split
+    (56, 8, 128, 16, [530, 7, 1, 40], 34, ">1"),  # short sequences:
+                                                # empty splits
+    (8, 2, 32, 8, [1], 4, ">1"),               # ctx = 1
+    (16, 2, 128, 16, [543, 543, 543], 36, ">1"),  # g = 8, lwm-like ctx
+    (40, 2, 64, 16, [200, 90], 13, ">1"),      # g = 20: three head tiles
+], ids=["long", "one_split", "empty_splits", "ctx1", "g8", "g20"])
+def test_paged_attention_split_kernel_matches_plain(cuda, H, K, hd, ps, lens,
+                                                    bps, splits):
+    q, kp, vp, bt, cl = _paged_case(H, K, hd, ps, lens, bps, 7, cuda)
+    bt = torch.from_numpy(bt).to(cuda)
+    n_split = pa_ops.plan_splits(len(lens), H, K, bps, pa_ops._sm_count(
+        q.device))
+    assert (n_split > 1) == (splits == ">1")
+    want = paged_attention_ref(q, kp, vp, bt, cl)
+    before = pa_ops.launches
+    got = pa_ops.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert pa_ops.launches == before + 1
+    assert not torch.isnan(got).any()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_paged_attention_kernel_bad_page_in_a_later_split(cuda):
+    """A bad table entry that only the last split reads still turns every
+    head of its sequence into NaN; the other sequence is untouched."""
+    q, kp, vp, bt, cl = _paged_case(8, 2, 32, 8, [60, 60], 8, 3, cuda)
+    n_split = pa_ops.plan_splits(2, 8, 2, 8, pa_ops._sm_count(q.device))
+    assert n_split >= 2
+    bt[0, 7] = kp.shape[0] + 5  # page 7 of 8: the last split's
+    bt = torch.from_numpy(bt).to(cuda)
+    out = pa_ops.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0]).all()
+    want = paged_attention_ref(q[1:], kp, vp, bt[1:], cl[1:])
+    assert (out[1:] - want).abs().max().item() <= 1e-4
+
+
 def test_engine_on_the_card_matches_the_cpu(cuda):
     cfg = reduce_config(get_config("lwm-7b"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -172,6 +224,11 @@ def _scan_inputs(b, s, nh, hd, G, S, seed, device):
     (2, 64, 4, 16, 2, 8, 32),         # two groups
     (1, 130, 4, 64, 2, 128, 128),     # Q > 64: two row tiles per chunk
     (1, 2048, 80, 64, 1, 128, 64),    # mamba2-2.7b prefill
+    (2, 2048, 80, 64, 1, 128, 64),    # the path's shape at b = 2
+    (1, 2064, 80, 64, 1, 128, 64),    # padded: 2064 = 32.25 chunks
+    (1, 256, 8, 64, 2, 128, 64),      # G = 2, nh = 8: two-block clusters
+    (1, 300, 8, 64, 2, 128, 128),     # chunk 128: two pieces of 64
+    (1, 72, 3, 24, 3, 16, 64),        # hd not a multiple of 16: one slice
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, hd, G, S, chunk):
     args = _scan_inputs(b, s, nh, hd, G, S, s, cuda)

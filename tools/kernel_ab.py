@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time the port's redesigned kernels against another checkout's, on one
+card, in alternating turns.
+
+    python3 tools/kernel_ab.py --other DIR   # DIR: another checkout
+
+Each turn is a fresh process that imports ``repro_torch`` from one
+checkout, builds its ``paged_attention`` and ``ssd_scan`` sources and
+times one op call (device time of a CUDA-graph replay, as
+``chip_smoke.py`` times it) at the shapes of ``chip_smoke.py``:
+``paged_attention`` at lwm-7b's and yi-34b's heads over three 543-token
+contexts, ``ssd_scan`` at mamba2-2.7b's prefill.  The turns run other,
+this, this, other; each prints one JSON line, and the script ends with
+the card's name and power limit.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[1]
+
+
+def turn(root: str) -> dict:
+    sys.path.insert(0, str(pathlib.Path(root) / "src"))
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    dev = torch.device("cuda", 0)
+
+    def graph_us(fn, iters=50, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) * 1e3 / iters)
+        return statistics.median(out)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    res = {"root": root}
+    lens, ps = [543, 543, 543], 16
+    for name, H, K in (("lwm-7b", 32, 32), ("yi-34b", 56, 8)):
+        B, hd = len(lens), 128
+        bps = max(-(-n // ps) for n in lens) + 2
+        q = torch.randn(B, H, hd, device=dev, generator=g)
+        kp = torch.randn(B * bps, ps, K, hd, device=dev, generator=g)
+        vp = torch.randn(B * bps, ps, K, hd, device=dev, generator=g)
+        bt = torch.randperm(B * bps, device=dev, generator=g).reshape(
+            B, bps).to(torch.int32)
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        res[f"paged_attention {name} us"] = graph_us(
+            lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
+    b, s, nh, hd, G, S = 1, 2048, 80, 64, 1, 128
+    args = (torch.randn(b, s, nh, hd, device=dev, generator=g),
+            -torch.nn.functional.softplus(
+                torch.randn(b, s, nh, device=dev, generator=g)),
+            torch.randn(b, s, G, S, device=dev, generator=g),
+            torch.randn(b, s, G, S, device=dev, generator=g))
+    res["ssd_scan mamba2-2.7b us"] = graph_us(
+        lambda: ssd_ops.ssd_scan(*args, chunk=64), iters=10)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", help="another checkout to time against")
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.turn:
+        print(json.dumps(turn(a.turn)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab.py: no CUDA device", flush=True)
+        return 1
+    rc = 0
+    for root in (a.other, str(HERE), str(HERE), a.other):
+        rc |= subprocess.call([sys.executable, __file__, "--turn", root])
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
