@@ -8,17 +8,23 @@ Run from a checkout of the repository; it needs one CUDA device and
 JAX or of the JAX package.  Phases:
 
 1. build: compile every CUDA kernel of the main path from the sources in
-   the checkout (one ``nvcc`` per source, all at once), timed;
+   the checkout (one ``nvcc`` per source, all at once), timed; then, in a
+   child process that profiles once (a later profiler session in a
+   process can lose every device record), the CUDA kernels of one call
+   of each op at the paths' shapes, which must be what its source
+   launches;
 2. set-up: lwm-7b at full width (32 layers, d 4096, 32 heads, hd 128,
    ff 11008, vocab 32000) with random fp32 weights from a seeded
    ``torch.Generator``; a donor prefills a 512-token prefix and registers
    it, encoded by the host codec, in a ``KVStore``;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (``kv_restore`` bit-equal, including a real
-   token in row 0 beside dropped tokens; ``paged_attention`` within
-   1e-4, also at yi-34b's GQA head shape, with the number of page-axis
-   splits and of CUDA kernels one op call launches), with times beside
-   the bound;
+   the main path's shapes (``kv_restore_layers`` bit-equal on the path's
+   first fetched chunk, 3 layers x 16 tokens, on a chunk of the 2-layer
+   remainder group and with a real token in row 0 beside dropped tokens,
+   and the single-layer ``kv_restore`` timed at one 8-token frame;
+   ``paged_attention`` within 1e-4, also at yi-34b's GQA head shape, with
+   the number of page-axis splits and phase 1's kernels per call); times
+   beside the bound;
    then the token-delta ops on the codec's real 240p planes of the
    prefix (``pack_frames`` of a fetched chunk and of layer group 0's
    whole prefix): counts set to 0, encode of each channel and the
@@ -51,7 +57,8 @@ JAX or of the JAX package.  Phases:
    path's shapes (s 2048 and 2064, chunk 64) and at s 40, y and final
    state within 2e-4 of their largest magnitude, timed beside its bound
    (the larger of its bytes and its 3xTF32 tensor-core operations, with
-   the fp32 SIMT figure beside it) and the kernels one op call launches;
+   the fp32 SIMT figure beside it), with phase 1's count of two kernels
+   per op call;
 9. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
    prefix; its recurrent state is snapshotted, encoded on the host,
    decoded, rebuilt on the card bit for bit, and two reuse requests
@@ -102,7 +109,8 @@ from repro_torch.core.prediction import ZIGZAG  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
-from repro_torch.kernels.kv_restore.ref import kv_restore_ref  # noqa: E402
+from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
+    kv_restore_layers_ref, kv_restore_ref)
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
@@ -140,6 +148,9 @@ ODD_STACK = (5, 5, 77)        # H*W not a multiple of 16
 # one chunk's transmit takes as long as its decode, so that pipelining the
 # two shows
 VIRTUAL_DECODE_S = 0.02
+# the decode contexts at the main path's last step: prefix + suffix + new
+# tokens - 1, for the two reuse requests and the plain one
+DECODE_CTX = [PREFIX_TOKENS + SUFFIX_TOKENS + NEW_TOKENS - 1] * 3
 
 
 def log(*a) -> None:
@@ -187,18 +198,109 @@ def bound(n_bytes: float, n_flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernels_per_call(fn) -> int:
-    """CUDA kernels that one call of ``fn`` launches, as the profiler
-    sees them on the device (0 if it saw none)."""
-    fn()
+def attention_inputs(dev, H, K, hd, ps, lens, seed):
+    """Decode attention over padded block tables, as the cache lays them
+    out: (q, k_pages, v_pages, block_tables, context_lens)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    bps = max(-(-n // ps) for n in lens) + 2  # padded tables, as the cache
+    P = B * bps
+    q = torch.randn(B, H, hd, device=dev, generator=g)
+    kp = torch.randn(P, ps, K, hd, device=dev, generator=g)
+    vp = torch.randn(P, ps, K, hd, device=dev, generator=g)
+    bt = torch.randperm(P, device=dev, generator=g)[:B * bps]
+    bt = bt.reshape(B, bps).to(torch.int32)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, cl
+
+
+def count_kernels_child() -> int:
+    """``chip_smoke.py --kernel-counts``: one profiled call of each op
+    that a path launches at the path's shapes (seeded inputs), each in
+    its own ``record_function`` range; prints, as JSON, the launches on
+    the host inside each range and how many of them have a kernel record
+    on the device, and the page-axis splits of ``paged_attention``."""
+    dev = torch.device("cuda", 0)
+    lwm, yi, mamba = (get_config(n) for n in ("lwm-7b", "yi-34b",
+                                               "mamba2-2.7b"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    H, D = lwm.num_kv_heads, lwm.head_dim
+    pages = torch.zeros(lwm.num_layers, N_PAGES * 16, H, D, device=dev)
+    q = torch.randint(0, 256, (3, TOKENS_PER_CHUNK, H, D), device=dev,
+                      generator=g, dtype=torch.uint8)
+    scales = torch.rand(3, H, device=dev, generator=g)
+    slots = torch.arange(TOKENS_PER_CHUNK, dtype=torch.int32, device=dev)
+    calls = {"kv_restore_layers": lambda: kv_ops.kv_restore_layers(
+        pages, (0, 1, 2), q, scales, slots)}
+    splits = {}
+    for seed, cfg in ((2, lwm), (3, yi)):
+        args = attention_inputs(dev, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim, 16, DECODE_CTX, seed)
+        name = f"paged_attention {cfg.name}"
+        calls[name] = lambda a=args: pa_ops.paged_attention(*a)
+        splits[name] = pa_ops.plan_splits(
+            len(DECODE_CTX), cfg.num_heads, cfg.num_kv_heads,
+            args[3].shape[1], pa_ops._sm_count(dev))
+    scan = scan_inputs(dev, 1, MAMBA_PREFIX, mamba.ssm_nheads,
+                       mamba.ssm_head_dim, mamba.ssm_ngroups, mamba.ssm_state,
+                       SEED + 6)
+    calls["ssd_scan"] = lambda: ssd_ops.ssd_scan(*scan, chunk=SCAN_CHUNK)
+    for fn in calls.values():
+        fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        fn()
+        for name, fn in calls.items():
+            with torch.profiler.record_function(name):
+                fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = prof.profiler.kineto_results.events()
+    on_device = torch.autograd.DeviceType.CUDA
+    recorded = {e.correlation_id() for e in events
+                if e.device_type() == on_device
+                and not e.is_user_annotation()}
+    launches = [e for e in events
+                if e.device_type() != on_device and "Launch" in e.name()]
+    out = {}
+    for e in events:
+        if e.device_type() != on_device and e.name() in calls:
+            mine = [x for x in launches
+                    if e.start_ns() <= x.start_ns() <= e.end_ns()]
+            out[e.name()] = dict(
+                launches=len(mine),
+                kernels=sum(x.correlation_id() in recorded for x in mine),
+                splits=splits.get(e.name()))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def kernel_counts() -> dict:
+    """CUDA kernels per op call as the profiler sees them on the device,
+    each checked against what the op's source launches.
+
+    Counted in a child process whose only profiler session this is: in a
+    process that has profiled once, a later session can come back without
+    any device record (even for PyTorch's own kernels), most often after
+    tens of seconds of other work, so a count taken there is no count."""
+    out = subprocess.run([sys.executable, str(pathlib.Path(__file__)),
+                          "--kernel-counts"], capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, f"kernel count failed:\n{out.stderr}")
+    counts = json.loads(out.stdout.strip().splitlines()[-1])
+    for name, c in counts.items():
+        # what the sources launch: kv_restore one kernel, ssd_scan C.B^T
+        # then the scan, paged_attention its split kernel and, when it
+        # splits the pages, the merge
+        want = {"kv_restore_layers": 1, "ssd_scan": 2}.get(
+            name, 1 if c["splits"] == 1 else 2)
+        log(f"[profile] {name}: {c['kernels']} CUDA kernels per op call "
+            f"with a device record, {c['launches']} launches on the host"
+            + (f"; {c['splits']} splits" if c["splits"] else ""))
+        check(c["launches"] == c["kernels"] == want,
+              f"{name}: {c['kernels']} kernels on the device for "
+              f"{c['launches']} launches, the source launches {want}")
+    return counts
 
 
 # -- phase 2: model, donor, store --------------------------------------------
@@ -246,41 +348,93 @@ def set_up(dev):
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def kv_restore_phase(dev, cfg, man):
+def chunk_tokens(cfg, man, ref):
+    """One fetched chunk as the engine stages it: every frame decoded, the
+    frames' tokens concatenated, layer-major [G, n, H, D]; with the
+    tokens' positions in the chunk and the first frame's token count."""
     lay = IntraLayout(cfg.num_kv_heads, cfg.head_dim, *man.layout)
     codec = KVCodec(cfg.num_kv_heads, cfg.head_dim, lay)
-    blob = man.blobs[(man.refs[0].chunk_id, RESOLUTION)]
-    toks, qt = next(codec.iter_decode_frames(blob))
-    n, H, D = qt.shape[0], cfg.num_kv_heads, cfg.head_dim
+    frames = list(codec.iter_decode_frames(
+        man.blobs[(ref.chunk_id, RESOLUTION)]))
+    q = np.concatenate([qt for _, qt in frames], axis=0)
+    return (np.concatenate([toks for toks, _ in frames]),
+            np.ascontiguousarray(q.swapaxes(0, 1)), len(frames[0][0]))
+
+
+def kv_restore_phase(dev, cfg, man, n_kernels: int):
+    H, D, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
     R = N_PAGES * 16
     g = torch.Generator(device=dev).manual_seed(1)
-    pages = torch.randn(R, H, D, device=dev, generator=g)
-    q = torch.as_tensor(np.ascontiguousarray(qt[:, 0]), device=dev)
-    scales = torch.as_tensor(man.scales["k"][0], device=dev)
-    rows = (torch.randperm(R - 1, device=dev, generator=g)[:n] + 1).to(
-        torch.int32)  # distinct rows >= 1, so row 0 below is unique
-    err = 0.0
-    # the main path's frame, then row 0 beside dropped tokens
+    pages = torch.randn(L, R, H, D, device=dev, generator=g)
+    # the path's first chunk (a 3-layer group) and a chunk of the 2-layer
+    # remainder group, with distinct rows >= 1, so row 0 below is unique
+    cases, frame_len = [], 0
+    for ref in (man.refs[0], next(r for r in man.refs if len(r.layers) < 3)):
+        toks, q, first_len = chunk_tokens(cfg, man, ref)
+        rows = (torch.randperm(R - 1, device=dev, generator=g)[:len(toks)]
+                + 1).to(torch.int32)
+        l0 = ref.layers[0]
+        scales = torch.as_tensor(
+            man.scales[ref.kind][l0:l0 + len(ref.layers)], device=dev)
+        cases.append((f"chunk {ref.chunk_id}", ref.layers,
+                      torch.as_tensor(q, device=dev), scales, rows))
+        frame_len = frame_len or first_len
+    what, layers, q, scales, rows = cases[0]
     dropped = rows.clone()
     dropped[0] = 0
     dropped[1::3] = -1
-    for sl in (rows, dropped):
-        want = kv_restore_ref(pages.clone(), q, scales, sl)
-        got = kv_ops.kv_restore(pages.clone(), q, scales, sl)
+    cases.append(("slot 0 beside dropped tokens", layers, q, scales,
+                  dropped))
+    err = 0.0
+    for what, layers_c, q_c, scales_c, sl in cases:
+        want = kv_restore_layers_ref(pages.clone(), layers_c, q_c, scales_c,
+                                     sl)
+        got = kv_ops.kv_restore_layers(pages.clone(), layers_c, q_c,
+                                       scales_c, sl)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), "kv_restore kernel != plain version")
+        check(torch.equal(got, want),
+              f"kv_restore_layers kernel != plain version ({what})")
         err = max(err, (got - want).abs().max().item())
-    ms = graph_ms(lambda: kv_ops.kv_restore(pages, q, scales, rows))
-    eager_ms = time_ms(lambda: kv_ops.kv_restore(pages, q, scales, rows))
+    G, n = q.shape[:2]
+
+    def call():
+        kv_ops.kv_restore_layers(pages, layers, q, scales, rows)
+    ms = graph_ms(call)
+    eager_ms = time_ms(call)
     # the plain version's boolean-mask scatter synchronises with the host,
     # so it cannot be captured: its time includes that round trip
-    plain_ms = time_ms(lambda: kv_restore_ref(pages, q, scales, rows))
-    n_bytes = n * H * D * (1 + 4) + H * 4 + n * 4
-    b_ms, b_by = bound(n_bytes, 2 * n * H * D)
-    log(f"[kernel] kv_restore n={n} H={H} D={D}: bit-equal, device "
-        f"{ms * 1e3:.2f} us/launch (eager call from Python "
+    plain_ms = time_ms(lambda: kv_restore_layers_ref(pages, layers, q,
+                                                     scales, rows))
+    n_bytes = G * n * H * D * (1 + 4) + G * H * 4 + n * 4
+    b_ms, b_by = bound(n_bytes, 2 * G * n * H * D)
+    log(f"[kernel] kv_restore_layers G={G} n={n} H={H} D={D} (one chunk, "
+        f"layers {tuple(layers)}): bit-equal in {len(cases)} cases (the "
+        f"path's first chunk, a 2-layer remainder chunk, slot 0 beside "
+        f"dropped tokens); {n_kernels} CUDA kernel per call; {G * n} "
+        f"blocks; device {ms * 1e3:.2f} us/launch (eager call from Python "
         f"{eager_ms * 1e3:.2f} us; plain version {plain_ms * 1e3:.2f} us "
-        f"eager; bound {b_ms * 1e3:.4f} us by {b_by})")
+        f"eager; bound {b_ms * 1e3:.4f} us by {b_by}, {n_bytes} bytes)")
+    # the shape of one launch when each layer of each frame was restored
+    # on its own: one layer of one 8-token frame
+    one, frame = pages[0], q[0, :frame_len]
+    s1 = scales[0].contiguous()
+    r1 = rows[:frame_len].contiguous()
+    ms1 = graph_ms(lambda: kv_ops.kv_restore(one, frame, s1, r1))
+    eager1 = time_ms(lambda: kv_ops.kv_restore(one, frame, s1, r1))
+    plain1 = time_ms(lambda: kv_restore_ref(one, frame, s1, r1))
+    n1 = frame_len
+    b1, b1_by = bound(n1 * H * D * (1 + 4) + H * 4 + n1 * 4,
+                      2 * n1 * H * D)
+    log(f"[kernel] kv_restore n={n1} H={H} D={D} (one layer of one frame, "
+        f"the per-layer shape before one launch per chunk): device "
+        f"{ms1 * 1e3:.2f} us/launch (eager call {eager1 * 1e3:.2f} us; "
+        f"plain version {plain1 * 1e3:.2f} us eager; bound "
+        f"{b1 * 1e3:.4f} us by {b1_by})")
+    # the floor under both: one PyTorch kernel on 16 bytes, graph-replayed
+    tiny = torch.zeros(4, device=dev)
+    floor_ms = graph_ms(lambda: tiny.add_(1.0))
+    log(f"[kernel] launch floor: one PyTorch kernel on 16 bytes, device "
+        f"{floor_ms * 1e3:.2f} us/launch in a CUDA-graph replay")
     return dict(name="kv_restore", route="cuda",
                 source="src/repro_torch/kernels/kv_restore/kv_restore.cu",
                 replaces="src/repro/kernels/kv_restore/kv_restore.py:35",
@@ -288,25 +442,15 @@ def kv_restore_phase(dev, cfg, man):
                 bound_by=b_by, library_ms=None)
 
 
-def paged_attention_case(dev, H, K, hd, ps, lens, seed):
-    g = torch.Generator(device=dev).manual_seed(seed)
-    B = len(lens)
-    bps = max(-(-n // ps) for n in lens) + 2  # padded tables, as the cache
-    P = B * bps
-    q = torch.randn(B, H, hd, device=dev, generator=g)
-    kp = torch.randn(P, ps, K, hd, device=dev, generator=g)
-    vp = torch.randn(P, ps, K, hd, device=dev, generator=g)
-    bt = torch.randperm(P, device=dev, generator=g)[:B * bps]
-    bt = bt.reshape(B, bps).to(torch.int32)
-    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+def paged_attention_case(dev, H, K, hd, ps, lens, seed, n_kernels: int):
+    q, kp, vp, bt, cl = attention_inputs(dev, H, K, hd, ps, lens, seed)
+    B, bps = bt.shape
     want = paged_attention_ref(q, kp, vp, bt, cl)
     got = pa_ops.paged_attention(q, kp, vp, bt, cl)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(err <= ATTN_TOL, f"paged_attention kernel off by {err}")
     n_split = pa_ops.plan_splits(B, H, K, bps, pa_ops._sm_count(q.device))
-    n_kernels = kernels_per_call(
-        lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
     ms = graph_ms(lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
     eager_ms = time_ms(lambda: pa_ops.paged_attention(q, kp, vp, bt, cl))
     plain_ms = graph_ms(lambda: paged_attention_ref(q, kp, vp, bt, cl))
@@ -485,12 +629,12 @@ def token_delta_phase(dev, cfg, man):
 # -- phase 4: the main path ---------------------------------------------------
 
 def expected_restores(cfg, man) -> int:
-    """kv_restore launches for one fetch of ``man``: frames x layers, summed
-    over the chunks of both kinds."""
+    """kv_restore launches for one fetch of ``man``: one per chunk (of
+    both kinds) that holds at least one frame."""
     lay = IntraLayout(cfg.num_kv_heads, cfg.head_dim, *man.layout)
     codec = KVCodec(cfg.num_kv_heads, cfg.head_dim, lay)
-    return sum(codec.frame_count(man.blobs[(r.chunk_id, RESOLUTION)])
-               * len(r.layers) for r in man.refs)
+    return sum(codec.frame_count(man.blobs[(r.chunk_id, RESOLUTION)]) > 0
+               for r in man.refs)
 
 
 def check_restored_pages(eng, cfg, man, rid) -> None:
@@ -519,6 +663,15 @@ def profile_step(fn, what: str = "one decode step"):
         busy = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # launches whose kernel has a device record: the busy time is a lower
+    # bound when the profiler lost some (see kernel_counts)
+    events = prof.profiler.kineto_results.events()
+    launch_ids = {e.correlation_id() for e in events
+                  if e.device_type() != torch.autograd.DeviceType.CUDA
+                  and "Launch" in e.name()}
+    recorded = len({e.correlation_id() for e in events
+                    if e.device_type() == torch.autograd.DeviceType.CUDA}
+                   & launch_ids)
     kernels, ops = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -530,7 +683,8 @@ def profile_step(fn, what: str = "one decode step"):
     n_launch = sum(k[1] for k in kernels)
     log(f"[profile] {what}: wall {wall_ms:.2f} ms (profiled), "
         f"{n_launch} kernels, device busy {busy_ms:.2f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; {recorded} of "
+        f"{len(launch_ids)} launches have a device record")
     for us, count, key in sorted(kernels, reverse=True)[:6]:
         log(f"[profile]   kernel  device {us / 1e3:8.3f} ms  x{count:<5d} "
             f"{key[:60]}")
@@ -791,7 +945,7 @@ def scan_bound(b, s, nh, hd, G, S, Q):
     return ms, by, n_flops / FP32_FLOPS_PER_S * 1e3
 
 
-def ssd_scan_phase(dev, cfg):
+def ssd_scan_phase(dev, cfg, n_kernels: int):
     nh, hd, G, S = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
                     cfg.ssm_state)
     err = 0.0
@@ -812,8 +966,6 @@ def ssd_scan_phase(dev, cfg):
                 f"largest {scale:.3g}")
         if s == MAMBA_PREFIX:
             timed = args
-    n_kernels = kernels_per_call(
-        lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK))
     ms = graph_ms(lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK),
                   iters=20)
     eager_ms = time_ms(lambda: ssd_ops.ssd_scan(*timed, chunk=SCAN_CHUNK),
@@ -1025,15 +1177,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    counts = {name: c["kernels"] for name, c in kernel_counts().items()}
     cfg, params, store, man, prefix, prompts, plain = set_up(dev)
-    ctx = [len(p) + NEW_TOKENS - 1 for p in prompts] + \
-        [len(plain) + NEW_TOKENS - 1]
-    rows = [kv_restore_phase(dev, cfg, man),
-            paged_attention_case(dev, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, 16, ctx, 2)]
+    check([len(p) + NEW_TOKENS - 1 for p in prompts]
+          + [len(plain) + NEW_TOKENS - 1] == DECODE_CTX,
+          "the path's decode contexts differ from DECODE_CTX")
     yi = get_config("yi-34b")
+    rows = [kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"]),
+            paged_attention_case(dev, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.head_dim, 16, DECODE_CTX, 2,
+                                 counts[f"paged_attention {cfg.name}"])]
     paged_attention_case(dev, yi.num_heads, yi.num_kv_heads, yi.head_dim,
-                         16, ctx, 3)
+                         16, DECODE_CTX, 3,
+                         counts[f"paged_attention {yi.name}"])
     td_rows, td_launches = token_delta_phase(dev, cfg, man)
     rows += td_rows
 
@@ -1047,7 +1203,7 @@ def main() -> int:
     small_reference(dev)
 
     m_cfg, m_params, m_prefix, m_prompts = mamba_set_up(dev)
-    rows.append(ssd_scan_phase(dev, m_cfg))
+    rows.append(ssd_scan_phase(dev, m_cfg, counts["ssd_scan"]))
     launches["ssd_scan"] = mamba_path(dev, m_cfg, m_params, m_prefix,
                                       m_prompts)
     del m_params
@@ -1070,4 +1226,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(count_kernels_child() if sys.argv[1:] == ["--kernel-counts"]
+             else main())

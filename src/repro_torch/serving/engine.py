@@ -3,10 +3,10 @@
 The JAX package's ``LiveEngine`` over a flat ``KVStore``:
 fetching-aware scheduling, fetches whose chunks are decoded frame by
 frame on the host and restored into the paged cache by the
-``kv_restore`` kernel, suffix prefill over the restored prefix KV, and
-continuously batched paged decode through the ``paged_attention``
-kernel.  Fetching runs through the event-driven
-`repro_torch.core.fetch_controller`.  Two operating modes:
+``kv_restore`` kernel (one launch per fetched chunk), suffix prefill
+over the restored prefix KV, and continuously batched paged decode
+through the ``paged_attention`` kernel.  Fetching runs through the
+event-driven `repro_torch.core.fetch_controller`.  Two operating modes:
 
   * wall clock (default, ``bandwidth=None``): fetches complete
     synchronously at dispatch, timestamps are ``time.monotonic()``.
@@ -177,6 +177,7 @@ class LiveEngine:
         self.on_token = on_token
         self.cost = cost
         self.ctrl: Optional[FetchController] = None
+        self._fetch_scales: Dict[int, Dict[str, torch.Tensor]] = {}
         if self.virtual:
             if self.cost is None:
                 self.cost = EngineCostModel(cfg, CHIPS["h20"], 1)
@@ -201,6 +202,14 @@ class LiveEngine:
                     use_table_sizes=use_table_sizes,
                     rto_mode=rto_mode, **pipe_kw),
                 hooks=_EngineHooks(self))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on the card through pinned
+        memory and an asynchronous copy."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     # -- time: virtual clock in modeled-network mode, else wall clock -------
     def now(self) -> float:
@@ -237,6 +246,12 @@ class LiveEngine:
             raise KeyError(f"prefix {req.prefix} not registered")
         plan = build_plan(req.rid, man)
         self.cache.add_seq(req.rid, req.prompt_len + req.max_new_tokens)
+        self.cache.reserve_staging(
+            max(len(r.layers) for r in man.refs),
+            max(r.token_end - r.token_start for r in man.refs))
+        # each kind's [L, K] scales reach the device once per fetch
+        self._fetch_scales[req.rid] = {
+            kind: self._upload(sc) for kind, sc in man.scales.items()}
         if self.ctrl is None:
             self._run_fetch_wall(req, plan)
             return
@@ -258,32 +273,46 @@ class LiveEngine:
         req.layers_ready = plan.layers_ready()
         self.sched.notify_fetch_done(req, self.now())
 
-    # -- frame-wise restoration (real codec + paged scatter) -----------------
+    # -- chunk-wise restoration (real codec + paged scatter) -----------------
     def _restore_chunk(self, req: Request, plan: FetchPlan,
                        pc: PlannedChunk) -> None:
+        """Decode one fetched chunk frame by frame on the host into a
+        layer-major staging buffer, then restore it into every layer of its
+        group with one upload and one ``kv_restore_layers`` launch.  The
+        pages are read only after the chunk's restore event, so this is
+        observably the frame-wise restore of the JAX engine."""
         man = plan.manifest
+        ref = pc.ref
         res = pc.resolution or self.resolution
-        blob = man.blobs[(pc.ref.chunk_id, res)]
+        blob = man.blobs[(ref.chunk_id, res)]
         self.stats.fetched_bytes += len(blob)
         lay = IntraLayout(self.cfg.num_kv_heads, self.cfg.head_dim,
                           *man.layout)
         codec = KVCodec(self.cfg.num_kv_heads, self.cfg.head_dim, lay)
-        scales = torch.as_tensor(man.scales[pc.ref.kind], device=self.device)
+        G, n = len(ref.layers), ref.token_end - ref.token_start
+        staged = self.cache.staging_buffer(G, n)
+        q = staged.numpy()
+        token_ids = np.empty(n, np.int64)
+        off = 0
         for toks, qt in codec.iter_decode_frames(blob):
             buf = qt.nbytes * 2  # residual + reference frame
             self.stats.restore_buffer_high_water = max(
                 self.stats.restore_buffer_high_water, buf)
-            global_toks = toks + pc.ref.token_start
-            # one upload per frame, layer-major so each layer's
-            # [n, K, hd] tokens are contiguous on the device
-            frame = torch.as_tensor(
-                np.ascontiguousarray(qt.transpose(1, 0, 2, 3)),
-                device=self.device)
-            for li, layer in enumerate(pc.ref.layers):
-                self.cache.restore_tokens(layer, pc.ref.kind, req.rid,
-                                          global_toks, frame[li],
-                                          scales[layer])
-            self.stats.restored_tokens += len(toks)
+            k = len(toks)
+            q[:, off:off + k] = qt.swapaxes(0, 1)
+            token_ids[off:off + k] = toks + ref.token_start
+            off += k
+            self.stats.restored_tokens += k
+        if off != n:
+            raise ValueError(f"chunk {ref.chunk_id}: decoded {off} tokens, "
+                             f"its manifest entry holds {n}")
+        l0 = ref.layers[0]
+        if tuple(ref.layers) != tuple(range(l0, l0 + G)):
+            raise ValueError(f"chunk {ref.chunk_id}: layers {ref.layers} "
+                             f"are not one contiguous group")
+        scales = self._fetch_scales[req.rid][ref.kind][l0:l0 + G]
+        self.cache.restore_chunk(ref.kind, req.rid, ref.layers, token_ids,
+                                 staged, scales)
 
     # -- prefill -------------------------------------------------------------
     def _prefill(self, req: Request) -> None:
@@ -413,6 +442,7 @@ class LiveEngine:
             if req.tokens_out >= req.max_new_tokens:
                 self.sched.finish(req, self.now())
                 self.cache.free_seq(req.rid)
+                self._fetch_scales.pop(req.rid, None)
                 self.finished.append(req)
         # engine idle but fetches in flight: jump the virtual clock to the
         # next pipeline event so waiting requests make progress

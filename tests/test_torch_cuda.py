@@ -14,7 +14,8 @@ from repro_torch.cluster.network import BandwidthTrace  # noqa: E402
 from repro_torch.cluster.storage import KVStore  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
-from repro_torch.kernels.kv_restore.ref import kv_restore_ref  # noqa: E402
+from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
+    kv_restore_layers_ref, kv_restore_ref)
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
@@ -24,6 +25,7 @@ from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_decode_frame_ref, token_delta_encode_ref)
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.paged import cache as paged_cache  # noqa: E402
 from repro_torch.core.chunks import prefix_key  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
@@ -90,6 +92,93 @@ def test_kv_restore_kernel_rejects_bad_arguments(cuda):
         kv_ops.kv_restore(pages, q, scales.cpu(), sl)
     with pytest.raises(ValueError):
         kv_ops.kv_restore(pages, q[:, :2], scales, sl)
+
+
+def _layers_case(G, n, H, D, L, R, dtype, slots, seed, device):
+    rng = np.random.default_rng(seed)
+    pages = torch.from_numpy(rng.standard_normal((L, R, H, D)).astype(
+        np.float32)).to(device, dtype)
+    layers = [int(x) for x in rng.choice(L, size=G, replace=False)]
+    q = torch.from_numpy(rng.integers(0, 256, (G, n, H, D)).astype(
+        np.uint8)).to(device)
+    scales = torch.from_numpy((rng.random((G, H)) + 0.05).astype(
+        np.float32)).to(device)
+    return pages, layers, q, scales, torch.tensor(slots, dtype=torch.int32,
+                                                  device=device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("n,H,D,slots", [
+    # lwm-7b's 16-token chunk: slot 0 beside dropped tokens
+    (16, 32, 128, [5, 0, -1, 9, 17, -1, 4, 30, 31, 2, -1, 11, 12, 13, 1, 3]),
+    (3, 8, 10, [2, -1, 0]),  # rows not 16-byte sized: the scalar path
+])
+def test_kv_restore_layers_kernel_bit_equal(cuda, dtype, G, n, H, D, slots):
+    pages, layers, q, scales, sl = _layers_case(
+        G, n, H, D, 4, 32, getattr(torch, dtype), slots, G, cuda)
+    want = kv_restore_layers_ref(pages.clone(), layers, q, scales, sl)
+    before = kv_ops.launches
+    got = kv_ops.kv_restore_layers(pages, layers, q, scales, sl)
+    torch.cuda.synchronize()
+    assert kv_ops.launches == before + 1 and got is pages
+    assert torch.equal(got, want)
+
+
+def test_kv_restore_layers_kernel_unaligned_tokens(cuda):
+    pages, layers, q, scales, sl = _layers_case(
+        3, 5, 4, 16, 3, 16, torch.float32, [1, 2, 3, 4, 5], 1, cuda)
+    buf = torch.empty(q.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = buf[1:].view(q.shape)  # contiguous, 1 byte off alignment
+    shifted.copy_(q)
+    want = kv_restore_layers_ref(pages.clone(), layers, q, scales, sl)
+    kv_ops.kv_restore_layers(pages, layers, shifted, scales, sl)
+    torch.cuda.synchronize()
+    assert torch.equal(pages, want)
+
+
+def test_kv_restore_layers_kernel_rejects_bad_arguments(cuda):
+    pages, layers, q, scales, sl = _layers_case(
+        2, 2, 4, 16, 3, 8, torch.float32, [0, 1], 2, cuda)
+    before = kv_ops.launches
+    with pytest.raises(TypeError):
+        kv_ops.kv_restore_layers(pages, layers, q, scales, sl.long())
+    with pytest.raises(ValueError):
+        kv_ops.kv_restore_layers(pages, [0, 3], q, scales, sl)  # L = 3
+    with pytest.raises(ValueError):
+        kv_ops.kv_restore_layers(pages, layers, q, scales.cpu(), sl)
+    with pytest.raises(ValueError):
+        kv_ops.kv_restore_layers(pages, layers, q[:, :1], scales, sl)
+    with pytest.raises(ValueError):
+        kv_ops.kv_restore_layers(pages, layers[:1], q, scales, sl)
+    assert kv_ops.launches == before
+
+
+def test_restore_chunk_on_the_card_matches_the_cpu(cuda):
+    """PagedKVCache.restore_chunk through the pinned staging ring (more
+    chunks than buffers, so buffers are reused) against the CPU cache."""
+    cfg = reduce_config(get_config("lwm-7b"), num_layers=5)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(3)
+    caches = [paged_cache.PagedKVCache(cfg, n_pages=12, page_size=8,
+                                       device=d) for d in ("cpu", cuda)]
+    for c in caches:
+        c.add_seq(0, 40)
+    caches[1].reserve_staging(3, 16)
+    for t0 in (0, 16, 24, 8):
+        n = 16 if t0 < 24 else 8
+        for kind, layers in (("k", (0, 1, 2)), ("v", (3, 4)), ("k", (3, 4))):
+            q = rng.integers(0, 256, (len(layers), n, K, hd)).astype(np.uint8)
+            sc = (rng.random((len(layers), K)) + 0.05).astype(np.float32)
+            for c in caches:
+                staged = c.staging_buffer(len(layers), n)
+                staged.copy_(torch.from_numpy(q))
+                c.restore_chunk(kind, 0, layers, np.arange(t0, t0 + n),
+                                staged, torch.from_numpy(sc).to(c.device))
+    torch.cuda.synchronize()
+    assert caches[1].staging.tokens[0].is_pinned()
+    assert torch.equal(caches[0].k_pages, caches[1].k_pages.cpu())
+    assert torch.equal(caches[0].v_pages, caches[1].v_pages.cpu())
 
 
 @pytest.mark.parametrize("H,K,hd,ps,lens,pad", [
@@ -201,8 +290,12 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         eng = LiveEngine(p, cfg, store, device=dev)
         r = eng.submit(full, reuse_prefix=prefix_key(prefix),
                        reuse_tokens=48, max_new_tokens=4)
+        before = kv_ops.launches
         eng.run()
         assert r.t_first_token is not None
+        # one kv_restore launch per fetched chunk on the card
+        chunks = len(store.lookup(prefix_key(prefix)).refs)
+        assert kv_ops.launches - before == (0 if dev == "cpu" else chunks)
         outs.append(eng.outputs[r.rid])
     assert outs[0] == outs[1]
 
@@ -371,7 +464,10 @@ def test_virtual_clock_engine_on_the_card_matches_the_cpu(cuda):
                          decode_table=table)
         r = eng.submit(full, reuse_prefix=prefix_key(prefix),
                        reuse_tokens=48, max_new_tokens=4)
+        before = kv_ops.launches
         eng.run()
+        chunks = len(store.lookup(prefix_key(prefix)).refs)
+        assert kv_ops.launches - before == (0 if dev == "cpu" else chunks)
         logs.append((eng.outputs[r.rid], r.token_times,
                      eng.stats.restored_tokens))
     assert logs[0] == logs[1]

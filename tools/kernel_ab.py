@@ -5,11 +5,14 @@ card, in alternating turns.
     python3 tools/kernel_ab.py --other DIR   # DIR: another checkout
 
 Each turn is a fresh process that imports ``repro_torch`` from one
-checkout, builds its ``paged_attention`` and ``ssd_scan`` sources and
-times one op call (device time of a CUDA-graph replay, as
-``chip_smoke.py`` times it) at the shapes of ``chip_smoke.py``:
-``paged_attention`` at lwm-7b's and yi-34b's heads over three 543-token
-contexts, ``ssd_scan`` at mamba2-2.7b's prefill.  The turns run other,
+checkout, builds its ``paged_attention``, ``ssd_scan`` and
+``kv_restore`` sources and times one op call (device time of a
+CUDA-graph replay, as ``chip_smoke.py`` times it) at the shapes of
+``chip_smoke.py``: ``paged_attention`` at lwm-7b's and yi-34b's heads
+over three 543-token contexts, ``ssd_scan`` at mamba2-2.7b's prefill,
+``kv_restore`` on one layer of one 8-token frame of lwm-7b and, in a
+checkout that has ``kv_restore_layers``, on one 3-layer 16-token chunk.
+The turns run other,
 this, this, other; each prints one JSON line, and the script ends with
 the card's name and power limit.  Imports nothing of JAX.
 """
@@ -28,6 +31,7 @@ HERE = pathlib.Path(__file__).resolve().parents[1]
 def turn(root: str) -> dict:
     sys.path.insert(0, str(pathlib.Path(root) / "src"))
     import torch
+    from repro_torch.kernels.kv_restore import ops as kv_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -73,6 +77,17 @@ def turn(root: str) -> dict:
             torch.randn(b, s, G, S, device=dev, generator=g))
     res["ssd_scan mamba2-2.7b us"] = graph_us(
         lambda: ssd_ops.ssd_scan(*args, chunk=64), iters=10)
+    H, D, R = 32, 128, 2048
+    pages = torch.randn(32, R, H, D, device=dev, generator=g)
+    q = torch.randint(0, 256, (3, 16, H, D), device=dev, generator=g,
+                      dtype=torch.uint8)
+    sc = torch.rand(3, H, device=dev, generator=g) + 0.05
+    slots = torch.randperm(R, device=dev, generator=g)[:16].to(torch.int32)
+    res["kv_restore lwm-7b frame us"] = graph_us(
+        lambda: kv_ops.kv_restore(pages[0], q[0, :8], sc[0], slots[:8]))
+    if hasattr(kv_ops, "kv_restore_layers"):
+        res["kv_restore_layers lwm-7b chunk us"] = graph_us(
+            lambda: kv_ops.kv_restore_layers(pages, (0, 1, 2), q, sc, slots))
     return res
 
 
