@@ -16,15 +16,18 @@ JAX or of the JAX package.  Phases:
 2. set-up: lwm-7b at full width (32 layers, d 4096, 32 heads, hd 128,
    ff 11008, vocab 32000) with random fp32 weights from a seeded
    ``torch.Generator``; a donor prefills a 512-token prefix and registers
-   it, encoded by the host codec, in a ``KVStore``;
+   it, encoded by the host codec, in a ``KVStore``; its K/V are kept for
+   phase 5b;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (``kv_restore_layers`` bit-equal on the path's
    first fetched chunk, 3 layers x 16 tokens, on a chunk of the 2-layer
    remainder group and with a real token in row 0 beside dropped tokens,
    and the single-layer ``kv_restore`` timed at one 8-token frame;
-   ``paged_attention`` within 1e-4, also at yi-34b's GQA head shape, with
-   the number of page-axis splits and phase 1's kernels per call); times
-   beside the bound;
+   ``paged_attention`` within 1e-4 at phase 4's batch of three, at phase
+   5b's one request alone and at yi-34b's GQA head shape, with the number
+   of page-axis splits and phase 1's kernels per call); times beside the
+   bound (``paged_attention``'s row in the kernel table takes the times of
+   the lwm-7b shape with more launches on the path; both are logged);
    then the token-delta ops on the codec's real 240p planes of the
    prefix (``pack_frames`` of a fetched chunk and of layer group 0's
    whole prefix): counts set to 0, encode of each channel and the
@@ -46,8 +49,25 @@ JAX or of the JAX package.  Phases:
    pages must equal the codec's frames, the tokens must equal those of
    phase 4 for the same prompts, and the modeled TTFT of async must be
    below sync's, the plain request's below the reuse request's;
+5b. storage tier: the same weights behind a two-node ``StorageCluster``
+   (replication 1, manual heal) with a host-staging ``PrefetchManager``;
+   only the prefix's first 256 tokens (the ancestor) are registered from
+   the donor's KV.  R1 asks for all 512: a partial hit; the ancestor's
+   node fails and R2 asks for the ancestor: a miss, whose tokens must
+   equal a plain prefill's; the 512-token prefix is registered from the
+   set-up's manifest; R3 asks for the ancestor: a full hit on the other
+   node, which stages the prefix in host memory; R4 asks for the prefix:
+   a host hit, whose tokens must equal phase 4's.  Per request the
+   counts are set to 0 before and read after: ``kv_restore`` must equal
+   the fetched chunks, ``paged_attention`` the layers times the decode
+   steps; every fetch's pages must equal the codec's frames; the
+   cluster's and the prefetcher's event logs, each request's TTFT and
+   fetch time, and the phase's wall time are logged;
 6. reference: the same engine at a reduced size on the card and on the
-   CPU (plain versions) must generate the same tokens;
+   CPU (plain versions) must generate the same tokens; so must the
+   storage script of phase 5b, with equal cluster and prefetcher event
+   logs, and a virtual-clock run of two users behind a
+   ``FairScheduler``, with equal fairness and cluster event logs;
 7. Mamba2 set-up: lwm-7b's weights are freed, then mamba2-2.7b at full
    width (64 layers, d 2560, d_inner 5120, 80 SSM heads of dim 64, state
    128, vocab 50280) with random fp32 weights from a seeded
@@ -95,12 +115,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.cluster.costmodel import CHIPS, EngineCostModel  # noqa: E402
+from repro_torch.cluster.fairness import FairScheduler  # noqa: E402
 from repro_torch.cluster.network import BandwidthTrace  # noqa: E402
-from repro_torch.cluster.storage import KVStore  # noqa: E402
+from repro_torch.cluster.staging import (  # noqa: E402
+    HostStagingTier, PrefetchManager)
+from repro_torch.cluster.storage import (  # noqa: E402
+    KVStore, StorageCluster, StorageNode, StoredPrefix)
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.core.chunks import (  # noqa: E402
-    decode_chunk_tokens, decode_state_snapshot, encode_state_snapshot,
-    prefix_key)
+    decode_chunk_tokens, decode_state_snapshot, encode_prefix,
+    encode_state_snapshot, prefix_key)
 from repro_torch.core.codec import KVCodec  # noqa: E402
 from repro_torch.core.adaptive import DecodeTable  # noqa: E402
 from repro_torch.core.layout import (  # noqa: E402
@@ -151,6 +176,13 @@ VIRTUAL_DECODE_S = 0.02
 # the decode contexts at the main path's last step: prefix + suffix + new
 # tokens - 1, for the two reuse requests and the plain one
 DECODE_CTX = [PREFIX_TOKENS + SUFFIX_TOKENS + NEW_TOKENS - 1] * 3
+# the storage phase's decode context at its last step: one request alone
+STORAGE_CTX = DECODE_CTX[:1]
+# paged_attention's cases, held, timed and counted at the paths' shapes:
+# (case, config, decode contexts, seed)
+ATTN_CASES = (("lwm-7b", "lwm-7b", DECODE_CTX, 2),
+              ("lwm-7b B=1", "lwm-7b", STORAGE_CTX, 4),
+              ("yi-34b", "yi-34b", DECODE_CTX, 3))
 
 
 def log(*a) -> None:
@@ -233,13 +265,14 @@ def count_kernels_child() -> int:
     calls = {"kv_restore_layers": lambda: kv_ops.kv_restore_layers(
         pages, (0, 1, 2), q, scales, slots)}
     splits = {}
-    for seed, cfg in ((2, lwm), (3, yi)):
+    for case, arch, lens, seed in ATTN_CASES:
+        cfg = lwm if arch == lwm.name else yi
         args = attention_inputs(dev, cfg.num_heads, cfg.num_kv_heads,
-                                cfg.head_dim, 16, DECODE_CTX, seed)
-        name = f"paged_attention {cfg.name}"
+                                cfg.head_dim, 16, lens, seed)
+        name = f"paged_attention {case}"
         calls[name] = lambda a=args: pa_ops.paged_attention(*a)
         splits[name] = pa_ops.plan_splits(
-            len(DECODE_CTX), cfg.num_heads, cfg.num_kv_heads,
+            len(lens), cfg.num_heads, cfg.num_kv_heads,
             args[3].shape[1], pa_ops._sm_count(dev))
     scan = scan_inputs(dev, 1, MAMBA_PREFIX, mamba.ssm_nheads,
                        mamba.ssm_head_dim, mamba.ssm_ngroups, mamba.ssm_state,
@@ -343,7 +376,7 @@ def set_up(dev):
         f"host encode {time.perf_counter() - t0:.2f} s, "
         f"{store.stored_bytes()} bytes in {len(man.refs)} chunks, "
         f"layout {man.layout}")
-    return cfg, params, store, man, prefix, prompts, plain
+    return cfg, params, store, man, prefix, prompts, plain, kv_k, kv_v
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -637,12 +670,18 @@ def expected_restores(cfg, man) -> int:
                for r in man.refs)
 
 
-def check_restored_pages(eng, cfg, man, rid) -> None:
+def check_restored_pages(eng, cfg, man, rid, frames: dict) -> None:
+    """The pages ``rid`` holds for ``man``'s tokens against the codec's
+    dequantized frames, bit for bit.  ``frames`` keeps those frames per
+    (prefix, chunk id), so a prefix checked again is not decoded again."""
     rows = torch.as_tensor(eng.cache.slots_for(rid, np.arange(man.n_tokens)),
                            device=eng.device).long()
     for r in man.refs:
-        deq = decode_chunk_tokens(man, r.chunk_id, RESOLUTION,
-                                  cfg.num_kv_heads, cfg.head_dim)
+        key = (man.prefix, r.chunk_id)
+        if key not in frames:
+            frames[key] = decode_chunk_tokens(
+                man, r.chunk_id, RESOLUTION, cfg.num_kv_heads, cfg.head_dim)
+        deq = frames[key]
         pages = eng.cache.k_pages if r.kind == "k" else eng.cache.v_pages
         for li, layer in enumerate(r.layers):
             got = eng.cache.layer_rows(pages, layer)[
@@ -703,7 +742,8 @@ def serve(dev, cfg, params, store, key, prompts, plain, reuse: bool):
     return eng, reqs
 
 
-def main_path(dev, cfg, params, store, man, prefix, prompts, plain):
+def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
+              frames):
     key = prefix_key(prefix)
     eng, reqs = serve(dev, cfg, params, store, key, prompts, plain, True)
     reuse_reqs = reqs[:2]
@@ -727,7 +767,7 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain):
             # pages still held: compare them before the sequences finish
             n_kv, n_pa = kv_ops.launches, pa_ops.launches
             for r in reuse_reqs:
-                check_restored_pages(eng, cfg, man, r.rid)
+                check_restored_pages(eng, cfg, man, r.rid, frames)
             checked = (n_kv, n_pa) == (kv_ops.launches, pa_ops.launches)
             check(checked, "page check launched a kernel")
     launches = {"kv_restore": kv_ops.launches,
@@ -794,7 +834,7 @@ def virtual_net(man):
 
 
 def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
-                 wall_outputs):
+                 wall_outputs, frames):
     key = prefix_key(prefix)
     trace, table, gbps, mean_bytes = virtual_net(man)
     log(f"[virtual] link {gbps:.6f} Gbps constant; decode table "
@@ -825,7 +865,7 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
                 # time is taken out of the run's wall time
                 t1 = time.perf_counter()
                 n_kv, n_pa = kv_ops.launches, pa_ops.launches
-                check_restored_pages(eng, cfg, man, reuse.rid)
+                check_restored_pages(eng, cfg, man, reuse.rid, frames)
                 check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
                       "page check launched a kernel")
                 checked = True
@@ -867,6 +907,191 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
         f"modes and to phase 4's")
 
 
+# -- phase 5b: the storage tier, host staging and prefetch ------------------
+
+def storage_script(dev, cfg, params, prefix, prompt, kv_k, kv_v, man, *,
+                   new_tokens: int, n_pages: int, frames: dict, log_fn=None):
+    """The storage tier's four hit kinds on one engine, one request at a
+    time, each alone in the engine (so each is a batch of one):
+
+    - R1 asks for all of ``prefix`` (the first tokens of ``prompt``) when
+      only its first half, the ancestor, is registered: a partial hit;
+    - the ancestor's node fails; R2 asks for the ancestor: a miss, served
+      by a plain prefill, whose first token writes the ancestor back (on
+      the other node); then a plain request for the same prompt;
+    - the whole prefix is registered from ``man`` (no second encode), its
+      parent the ancestor; R3 asks for the ancestor: a full hit on the
+      other node, which heats its child, so the prefetcher stages it;
+    - R4 asks for the whole prefix: a host hit.
+
+    For each request the launch counts are set to 0 just before and read
+    just after; on the card ``kv_restore`` must equal the fetched chunks
+    and ``paged_attention`` the layers times the decode steps.  Every
+    fetch's restored pages are checked against the codec's frames while
+    the request holds them.  Returns the requests, their tokens, the
+    counts and the cluster's and prefetcher's event logs."""
+    n_anc = len(prefix) // 2
+    cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
+                             replication=1, heal="manual")
+    t0 = time.perf_counter()
+    anc = cluster.register_prefix(prefix[:n_anc], kv_k[:n_anc],
+                                  kv_v[:n_anc],
+                                  tokens_per_chunk=TOKENS_PER_CHUNK,
+                                  resolutions=(RESOLUTION,))
+    if log_fn is not None:
+        log_fn(f"ancestor: {n_anc} tokens encoded on the host in "
+               f"{time.perf_counter() - t0:.2f} s, "
+               f"{anc.stored_bytes} bytes in {len(anc.manifest.refs)} "
+               f"chunks")
+    # R1's and R2's lookups heat the ancestor twice; at the default
+    # threshold of 2 the prefetcher would stage it before R3, and R3 would
+    # be a host hit.  At 3, R3's full hit is the ancestor's third lookup
+    # and its child's first heat of 3: both are staged after R3
+    prefetch = PrefetchManager(cluster, HostStagingTier(None),
+                               transport="sync", heat_threshold=3.0,
+                               continuation_boost=3.0)
+    eng = LiveEngine(params, cfg, cluster, n_pages=n_pages, device=dev,
+                     prefetch=prefetch)
+    on_card = eng.device.type == "cuda"
+    out = {}
+
+    def fetched(r):
+        """The manifest a fetch restored: whatever hit it was, it covers
+        the prompt's first ``reuse_tokens`` tokens."""
+        return cluster.catalog[prefix_key(prompt[:r.reuse_tokens])].manifest
+
+    def serve_one(name, reuse_tokens, want_hit):
+        r = eng.submit(prompt, reuse_prefix="by-tokens" if reuse_tokens
+                       else None, reuse_tokens=reuse_tokens,
+                       max_new_tokens=new_tokens)
+        if on_card:
+            torch.cuda.synchronize()
+        kv_ops.launches = 0
+        pa_ops.launches = 0
+        t0 = time.perf_counter()
+        checked, t_check = False, 0.0
+        while eng.step():
+            if not checked and r.t_first_token is not None:
+                t1 = time.perf_counter()
+                if r.needs_fetch:
+                    n_kv, n_pa = kv_ops.launches, pa_ops.launches
+                    check_restored_pages(eng, cfg, fetched(r), r.rid,
+                                         frames)
+                    check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
+                          "page check launched a kernel")
+                checked = True
+                t_check = time.perf_counter() - t1
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - t_check
+        launches = {"kv_restore": kv_ops.launches,
+                    "paged_attention": pa_ops.launches}
+        want = {"kv_restore": expected_restores(cfg, fetched(r))
+                if on_card and r.needs_fetch else 0,
+                "paged_attention": cfg.num_layers * (new_tokens - 1)
+                if on_card else 0}
+        check(r.storage_hit == want_hit,
+              f"{name}: hit {r.storage_hit}, expected {want_hit}")
+        check(checked and len(eng.outputs[r.rid]) == new_tokens
+              and all(0 <= t < cfg.vocab_size for t in eng.outputs[r.rid]),
+              f"{name}: bad output {eng.outputs[r.rid]}")
+        check(launches == want, f"{name}: launches {launches}, "
+              f"expected {want}")
+        if log_fn is not None:
+            fetch = ("" if r.fetch_done is None else
+                     f", fetch+decode+restore "
+                     f"{r.fetch_done - r.fetch_started:.3f} s")
+            log_fn(f"{name}: {r.storage_hit} hit on "
+                   f"{r.storage_node or '-'}, reuse {r.reuse_tokens} "
+                   f"tokens; TTFT {r.ttft:.3f} s{fetch}; wall {wall:.2f} s "
+                   f"(page check {t_check:.2f} s not counted); launches "
+                   f"{launches}, expected {want}")
+        out[name] = dict(req=r, tokens=eng.outputs[r.rid],
+                         launches=launches)
+        return r
+
+    r1 = serve_one("R1", len(prefix), "partial")
+    check(r1.reuse_tokens == n_anc and r1.requested_reuse_tokens
+          == len(prefix), f"R1 reuses {r1.reuse_tokens} tokens")
+    failed = r1.storage_node
+    eng.fail_node(failed)
+    serve_one("R2", n_anc, "miss")
+    serve_one("plain", 0, None)
+    check(out["R2"]["tokens"] == out["plain"]["tokens"],
+          f"R2 (miss) {out['R2']['tokens']} != a plain prefill's "
+          f"{out['plain']['tokens']}")
+    cluster.register(StoredPrefix.from_manifest(
+        man, raw_kv_bytes=int(kv_k.nbytes + kv_v.nbytes), parent=anc.key,
+        token_ids=np.asarray(prefix)), eng.now())
+    r3 = serve_one("R3", n_anc, "full")
+    check(r3.storage_node not in (None, failed),
+          f"R3 served by {r3.storage_node}, the failed node is {failed}")
+    serve_one("R4", len(prefix), "host")
+    check(("host_hit", man.prefix) in prefetch.events,
+          f"no host hit for the prefix in {prefetch.events}")
+    return out, list(cluster.events), list(prefetch.events)
+
+
+def storage_path(dev, cfg, params, man, prefix, prompts, kv_k, kv_v,
+                 wall_outputs, frames):
+    t0 = time.perf_counter()
+    out, events, pf_events = storage_script(
+        dev, cfg, params, prefix, prompts[0], kv_k, kv_v, man,
+        new_tokens=NEW_TOKENS, n_pages=N_PAGES, frames=frames,
+        log_fn=lambda s: log(f"[storage] {s}"))
+    wall = time.perf_counter() - t0
+    check(out["R4"]["tokens"] == wall_outputs[0],
+          f"R4 (host) {out['R4']['tokens']} != phase 4's "
+          f"{wall_outputs[0]} for the same prompt")
+    launches = {k: sum(o["launches"][k] for o in out.values())
+                for k in ("kv_restore", "paged_attention")}
+    log(f"[storage] cluster events {events}")
+    log(f"[storage] prefetch events {pf_events}")
+    log(f"[storage] kv_restore launches per request "
+        + " + ".join(str(out[n]["launches"]["kv_restore"])
+                     for n in ("R1", "R2", "R3", "R4"))
+        + f" = {launches['kv_restore']} (the fetched chunks); R2's tokens "
+        f"equal a plain prefill's, R4's phase 4's; phase wall time "
+        f"{wall:.2f} s (encode of the ancestor and page checks included)")
+    return launches
+
+
+def fair_script(dev, cfg, params, prefix, prompts, kv_k, kv_v):
+    """Two users on the virtual clock behind a FairScheduler: alice
+    (premium) and bob (free) each send two reuse requests through a
+    two-node StorageCluster over a modeled link, one fetch at a time.
+    Returns the tokens, token times and the fairness and cluster logs."""
+    cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
+                             replication=1)
+    cluster.register_prefix(prefix, kv_k, kv_v,
+                            tokens_per_chunk=TOKENS_PER_CHUNK,
+                            resolutions=(RESOLUTION,))
+    fair = FairScheduler(max_inflight=1)
+    table = DecodeTable(name="fair-toy", n_decoders=1,
+                        latency={RESOLUTION: (0.06,)},
+                        penalty={RESOLUTION: 0.0},
+                        chunk_size_mb={RESOLUTION: 0.002})
+    eng = LiveEngine(params, cfg, cluster, device=dev, max_running=8,
+                     fetch_mode="sync",
+                     bandwidth=BandwidthTrace.constant(0.0006),
+                     decode_table=table, use_table_sizes=True,
+                     adaptive=False, resolutions=(RESOLUTION,),
+                     cost=EngineCostModel(cfg, CHIPS["h20"], 2),
+                     fairness=fair)
+    reqs = [eng.submit(prompts[i % 2], reuse_prefix="by-tokens",
+                       reuse_tokens=len(prefix), max_new_tokens=4,
+                       user=user, slo_tier=tier)
+            for i, (user, tier) in enumerate(
+                [("bob", "free"), ("bob", "free"), ("alice", "premium"),
+                 ("alice", "premium")])]
+    eng.run()
+    check(all(len(eng.outputs[r.rid]) == 4 for r in reqs),
+          "a fair-scheduled request did not finish")
+    return ([eng.outputs[r.rid] for r in reqs],
+            [list(r.token_times) for r in reqs], list(fair.events),
+            list(cluster.events))
+
+
 # -- phase 6: agreement with the plain versions at a small size ---------------
 
 def small_reference(dev) -> None:
@@ -897,6 +1122,34 @@ def small_reference(dev) -> None:
         outs.append([eng.outputs[i] for i in range(3)])
     check(outs[0] == outs[1], f"card {outs[1]} != cpu {outs[0]}")
     log(f"[small] reduced lwm-7b on the card == on the CPU: {outs[1]}")
+    # the storage script and two users behind a FairScheduler on the
+    # virtual clock, on the CPU and on the card
+    man = encode_prefix(kv_k, kv_v, prefix=prefix_key(prefix),
+                        tokens_per_chunk=TOKENS_PER_CHUNK,
+                        resolutions=(RESOLUTION,))
+    runs = []
+    for d, p in (("cpu", params), (dev, dev_params)):
+        out, events, pf_events = storage_script(
+            d, cfg, p, prefix, prompts[0], kv_k, kv_v, man, new_tokens=6,
+            n_pages=N_PAGES, frames={})
+        runs.append(dict(
+            tokens={n: o["tokens"] for n, o in out.items()},
+            hits={n: (o["req"].storage_hit, o["req"].storage_node,
+                      o["req"].reuse_tokens) for n, o in out.items()},
+            events=events, prefetch=pf_events,
+            fair=fair_script(d, cfg, p, prefix, prompts, kv_k, kv_v)))
+    for what in runs[0]:
+        check(runs[0][what] == runs[1][what],
+              f"small storage tier, {what}: card {runs[1][what]} != cpu "
+              f"{runs[0][what]}")
+    log(f"[small] reduced storage script on the card == on the CPU: hits "
+        f"{runs[1]['hits']}, tokens {runs[1]['tokens']}, "
+        f"{len(runs[1]['events'])} cluster events, "
+        f"{len(runs[1]['prefetch'])} prefetch events equal")
+    log(f"[small] reduced FairScheduler run (virtual clock, 2 users) on the "
+        f"card == on the CPU: tokens {runs[1]['fair'][0]}, "
+        f"{len(runs[1]['fair'][2])} fairness events and "
+        f"{len(runs[1]['fair'][3])} cluster events equal")
 
 
 # -- phase 7: Mamba2 at full width ---------------------------------------------
@@ -1178,27 +1431,47 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     counts = {name: c["kernels"] for name, c in kernel_counts().items()}
-    cfg, params, store, man, prefix, prompts, plain = set_up(dev)
+    (cfg, params, store, man, prefix, prompts, plain, kv_k,
+     kv_v) = set_up(dev)
     check([len(p) + NEW_TOKENS - 1 for p in prompts]
           + [len(plain) + NEW_TOKENS - 1] == DECODE_CTX,
           "the path's decode contexts differ from DECODE_CTX")
-    yi = get_config("yi-34b")
-    rows = [kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"]),
-            paged_attention_case(dev, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.head_dim, 16, DECODE_CTX, 2,
-                                 counts[f"paged_attention {cfg.name}"])]
-    paged_attention_case(dev, yi.num_heads, yi.num_kv_heads, yi.head_dim,
-                         16, DECODE_CTX, 3,
-                         counts[f"paged_attention {yi.name}"])
+    rows = [kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"])]
+    attn = {}
+    for case, arch, lens, seed in ATTN_CASES:
+        c = get_config(arch)
+        attn[case] = paged_attention_case(
+            dev, c.num_heads, c.num_kv_heads, c.head_dim, 16, lens, seed,
+            counts[f"paged_attention {case}"])
     td_rows, td_launches = token_delta_phase(dev, cfg, man)
     rows += td_rows
 
+    frames = {}  # the codec's dequantized frames, shared by the page checks
     launches, wall_outputs = main_path(dev, cfg, params, store, man, prefix,
-                                       prompts, plain)
+                                       prompts, plain, frames)
     launches.update(td_launches)
     virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
-                 wall_outputs)
-    del params, store, man
+                 wall_outputs, frames)
+    stored = storage_path(dev, cfg, params, man, prefix, prompts, kv_k,
+                          kv_v, wall_outputs, frames)
+    # paged_attention runs at two shapes on lwm-7b's path: the batch of
+    # three in phase 4 and one request alone in phase 5b.  Its row takes
+    # the times of the shape with more launches; both are logged
+    per_shape = {"lwm-7b": launches["paged_attention"],
+                 "lwm-7b B=1": stored["paged_attention"]}
+    for case, n in per_shape.items():
+        a = attn[case]
+        log(f"[kernel] paged_attention {case}: {n} launches on the path; "
+            f"device {a['ms'] * 1e3:.2f} us/call, bound "
+            f"{a['bound_ms'] * 1e3:.3f} us, plain {a['plain_ms'] * 1e3:.2f}"
+            f" us, SDPA {a['library_ms'] * 1e3:.2f} us; loss over the "
+            f"bound {n * (a['ms'] - a['bound_ms']):.3f} ms per run")
+    rows.insert(1, dict(attn[max(per_shape, key=per_shape.get)],
+                     max_abs_err=max(attn[c]["max_abs_err"]
+                                     for c in per_shape)))
+    for name, n in stored.items():
+        launches[name] += n
+    del params, store, man, kv_k, kv_v, frames
     torch.cuda.empty_cache()
     small_reference(dev)
 

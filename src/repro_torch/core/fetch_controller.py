@@ -251,9 +251,9 @@ class FetchController:
         self.pool = pool
         self.config = config or PipelineConfig()
         self.hooks = hooks or FetchHooks()
-        # speculative prefetch (a staging-tier PrefetchManager, which
-        # arrives with the storage-tier slice of the port): demand
-        # fetches starting on a link cancel speculation riding it
+        # speculative prefetch (repro_torch.cluster.staging.
+        # PrefetchManager): demand fetches starting on a link cancel
+        # speculation riding it
         self.prefetcher = prefetcher
         # per-node smoothed-RTT sink (StorageCluster.observe_rtt): each
         # completed fetch reports its flow's RTT estimate keyed by the

@@ -1,12 +1,12 @@
 """Live serving engine: real compute, real codec, real paged memory.
 
-The JAX package's ``LiveEngine`` over a flat ``KVStore``:
-fetching-aware scheduling, fetches whose chunks are decoded frame by
-frame on the host and restored into the paged cache by the
-``kv_restore`` kernel (one launch per fetched chunk), suffix prefill
-over the restored prefix KV, and continuously batched paged decode
-through the ``paged_attention`` kernel.  Fetching runs through the
-event-driven `repro_torch.core.fetch_controller`.  Two operating modes:
+The JAX package's ``LiveEngine``: fetching-aware scheduling, fetches
+whose chunks are decoded frame by frame on the host and restored into
+the paged cache by the ``kv_restore`` kernel (one launch per fetched
+chunk), suffix prefill over the restored prefix KV, and continuously
+batched paged decode through the ``paged_attention`` kernel.  Fetching
+runs through the event-driven `repro_torch.core.fetch_controller`.  Two
+operating modes:
 
   * wall clock (default, ``bandwidth=None``): fetches complete
     synchronously at dispatch, timestamps are ``time.monotonic()``.
@@ -26,12 +26,25 @@ In virtual-clock mode the network is the WAN model of
 retransmission (``rto_mode=``); restoration stays bit-exact, only
 timing moves.
 
+The ``store`` may be a flat `KVStore` or a multi-node `StorageCluster`
+(`repro_torch.cluster.storage`): with a cluster, every fetch resolves
+through a longest-prefix match over the prompt tokens (full hit,
+partial hit on an ancestor whose tail becomes suffix prefill, or a miss
+that falls back to a plain prefill) and transmits over the serving
+node's own link.  ``fail_node``/``recover_node`` churn the cluster
+mid-serve, and a missed prefix is written back once its fallback
+prefill produced the first token (``notify_recompute_done``).
+``prefetch=`` (a `repro_torch.cluster.staging.PrefetchManager`) stages
+predicted prefixes in host memory and resolves demand fetches
+host-first; ``fairness=`` (a `repro_torch.cluster.fairness.
+FairScheduler`) orders fetch dispatch by per-user virtual counters.
+
 The constructor takes every knob of the JAX engine so the two stay
-interchangeable; the knobs of the storage tier (``prefetch``, a
-``StorageCluster`` store), of fairness, of the fleet
-(``external_dispatch``) and of mesh sharding (``mesh``, ``mesh_shards``)
-raise ``NotImplementedError`` naming the slice of the port that brings
-them, rather than being ignored.
+interchangeable; the knobs of the fleet (``external_dispatch``) and of
+mesh sharding (``mesh``, ``mesh_shards``) raise ``NotImplementedError``
+naming the slice of the port that brings them, rather than being
+ignored.  Where the JAX engine asserts, this one raises ``ValueError``
+with the same message.
 """
 from __future__ import annotations
 
@@ -45,7 +58,7 @@ import torch
 from repro_torch.cluster.costmodel import CHIPS, EngineCostModel
 from repro_torch.cluster.decodepool import DecodePool
 from repro_torch.cluster.network import LossModel, make_link
-from repro_torch.cluster.storage import KVStore
+from repro_torch.cluster.storage import KVStore, StorageCluster
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adaptive import DecodeTable
 from repro_torch.core.codec import KVCodec
@@ -133,9 +146,6 @@ class LiveEngine:
                  mesh=None, mesh_shards: Optional[int] = None,
                  device: DeviceLike = None):
         later = {
-            "prefetch": (prefetch is not None,
-                         "the storage-tier (staging and prefetch) slice"),
-            "fairness": (fairness is not None, "the fairness slice"),
             "external_dispatch": (external_dispatch, "the fleet slice"),
             "mesh": (mesh is not None, "the sharding slice"),
             "mesh_shards": (mesh_shards is not None, "the sharding slice"),
@@ -143,13 +153,16 @@ class LiveEngine:
         for knob, (given, slice_name) in later.items():
             if given:
                 raise _later(knob, slice_name)
-        if not isinstance(store, KVStore):
-            raise NotImplementedError(
-                f"LiveEngine store {type(store).__name__}: only the flat "
-                f"KVStore is ported; StorageCluster arrives with the "
-                f"storage-tier slice of the port")
+        if not isinstance(store, (KVStore, StorageCluster)):
+            raise TypeError(
+                f"LiveEngine store {type(store).__module__}."
+                f"{type(store).__name__}: the port serves its own KVStore "
+                f"or StorageCluster (repro_torch.cluster.storage)")
         if fetch_mode not in ("sync", "async"):
             raise ValueError(f"fetch_mode {fetch_mode!r}: 'sync' or 'async'")
+        if prefetch is not None and not isinstance(store, StorageCluster):
+            raise ValueError("prefetch= needs a multi-node StorageCluster "
+                             "store")
         self.virtual = bandwidth is not None
         if not self.virtual and (fetch_mode != "sync" or loss is not None
                                  or link_policy is not None
@@ -157,6 +170,20 @@ class LiveEngine:
             raise ValueError(
                 "WAN options (async fetch, loss=, link_policy=, link_ramp=) "
                 "need a bandwidth trace (virtual clock)")
+        if isinstance(store, StorageCluster) and (
+                loss is not None or link_policy is not None
+                or link_ramp is not None) and any(
+                    n.link is not None for n in store.nodes):
+            raise ValueError(
+                "loss=/link_policy=/link_ramp= only shape the default "
+                "link; nodes with their own links must carry their own "
+                "LossModel/policy/ramp: StorageNode(link=make_link("
+                "trace, policy=, loss=, ramp=))")
+        if not self.virtual and prefetch is not None \
+                and prefetch.transport != "sync":
+            # wall clock has no event queue to stream speculation on
+            raise ValueError(
+                "wall-clock engines need PrefetchManager(transport='sync')")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -164,9 +191,12 @@ class LiveEngine:
         self.params = params
         self.cfg = cfg
         self.store = store
+        self.prefetch = prefetch
         self.cache = PagedKVCache(cfg, n_pages, page_size,
                                   device=self.device)
-        self.sched = FetchingAwareScheduler(policy, max_running=max_running)
+        self.fairness = fairness
+        self.sched = FetchingAwareScheduler(policy, max_running=max_running,
+                                            fairness=fairness)
         self.resolution = resolution
         self.fetch_mode = fetch_mode
         self.stats = EngineStats()
@@ -201,7 +231,16 @@ class LiveEngine:
                                          and policy == "kvfetcher"),
                     use_table_sizes=use_table_sizes,
                     rto_mode=rto_mode, **pipe_kw),
-                hooks=_EngineHooks(self))
+                hooks=_EngineHooks(self), prefetcher=prefetch)
+            if isinstance(store, StorageCluster):
+                # heal="link" re-replication transfers share the
+                # controller's virtual clock and the nodes' links
+                store.bind(self.ctrl.push_event)
+                self.ctrl.rtt_sink = store.observe_rtt
+                # per-resolution usage feedback for rung-level eviction
+                self.ctrl.res_sink = store.note_resolution_use
+            if prefetch is not None:
+                prefetch.bind(self.ctrl.push_event)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device; on the card through pinned
@@ -218,6 +257,23 @@ class LiveEngine:
         # mode, where this branch never runs
         return self._clock if self.virtual \
             else time.monotonic()  # repro-lint: allow(no-wall-clock)
+
+    # -- storage-node churn ---------------------------------------------------
+    def fail_node(self, node_id: str) -> None:
+        """Kill one storage node at the engine's current clock: its keys
+        re-route to ring successors and the cluster's heal queue
+        restores the replication factor.  Later lookups for prefixes it
+        alone held miss and fall back to a plain prefill until healed."""
+        self._cluster("fail_node").fail_node(node_id, self.now())
+
+    def recover_node(self, node_id: str) -> None:
+        self._cluster("recover_node").recover_node(node_id, self.now())
+
+    def _cluster(self, what: str) -> StorageCluster:
+        if not isinstance(self.store, StorageCluster):
+            raise ValueError(f"{what} needs a multi-node StorageCluster "
+                             f"store")
+        return self.store
 
     # -- intake -------------------------------------------------------------
     def submit(self, tokens: np.ndarray, reuse_prefix: Optional[str] = None,
@@ -239,9 +295,51 @@ class LiveEngine:
 
     # -- fetch dispatch -------------------------------------------------------
     def _start_fetch(self, req: Request) -> None:
-        """Resolve the request's prefix in the flat store and start its
-        fetch: at once on the wall clock, else through the controller."""
-        man = self.store.lookup(req.prefix)
+        """Resolve the request's prefix against the store and start its
+        fetch: at once on the wall clock, else through the controller.
+        Against a `StorageCluster` the resolution is host-first (a copy
+        the prefetcher staged), then a longest-prefix match over the
+        prompt tokens: a **full** hit fetches the whole ask, a
+        **partial** hit fetches the resident ancestor's manifest (the
+        tail becomes suffix prefill), and a **miss** falls back to a
+        plain prefill; fetches route over the serving node's own
+        link."""
+        link = res_avail = served_key = None
+        if isinstance(self.store, StorageCluster):
+            tokens = self.prompts[req.rid][:req.reuse_tokens]
+            staged = (self.prefetch.host_lookup_tokens(tokens, self.now())
+                      if self.prefetch is not None else None)
+            if staged is not None:
+                # host-first: the staged copy serves from host memory
+                # over the staging tier's h2d link, off the WAN
+                req.storage_hit = "host"
+                req.storage_node = "host"
+                req.prefix = staged.key
+                self.prefetch.observe(staged.key, self.now())
+                man = staged.manifest
+                link = self.prefetch.staging.link
+            else:
+                hit = self.store.lookup_tokens(tokens, self.now())
+                if self.prefetch is not None:
+                    self.prefetch.observe(
+                        hit.entry.key if hit.entry is not None
+                        else hit.missed_key, self.now())
+                req.storage_hit = hit.kind
+                if hit.kind == "miss":
+                    req.storage_miss_key = hit.missed_key
+                    self.sched.notify_fetch_miss(req, self.now())
+                    return
+                req.storage_node = hit.node.node_id
+                if hit.kind == "partial":
+                    req.requested_reuse_tokens = req.reuse_tokens
+                    req.reuse_tokens = hit.covered_tokens
+                    req.prefix = hit.entry.key  # fetch the ancestor
+                man = hit.entry.manifest
+                link = hit.node.link
+                res_avail = hit.resolutions
+                served_key = hit.entry.key
+        else:
+            man = self.store.lookup(req.prefix)
         if man is None:
             raise KeyError(f"prefix {req.prefix} not registered")
         plan = build_plan(req.rid, man)
@@ -255,7 +353,8 @@ class LiveEngine:
         if self.ctrl is None:
             self._run_fetch_wall(req, plan)
             return
-        self.ctrl.start(req, plan, self.now())
+        self.ctrl.start(req, plan, self.now(), link=link,
+                        resolutions=res_avail, served_key=served_key)
         if self.fetch_mode == "sync":
             # blocking baseline: the engine idles until the (serialized)
             # pipeline finishes; the virtual clock absorbs the whole fetch
@@ -343,6 +442,12 @@ class LiveEngine:
         req.token_times.append(req.t_first_token)
         if self.on_token is not None:
             self.on_token(req, nxt, req.t_first_token)
+        if (req.storage_hit == "miss" and req.storage_miss_key
+                and isinstance(self.store, StorageCluster)):
+            # delayed write-on-miss: only now does the recomputed KV
+            # exist for the donor to upload again
+            self.store.notify_recompute_done(req.storage_miss_key,
+                                             req.t_first_token)
 
     def _await_layer(self, req: Request, layer: int) -> None:
         """Async mode: block (on the virtual clock) until ``layer``'s
@@ -410,6 +515,10 @@ class LiveEngine:
         for req in self.sched.take_fetches():
             self._start_fetch(req)
             self.sched.schedule(self.now())
+        if self.prefetch is not None:
+            # sglang-style tick: launch speculation for heated prefixes
+            # (deferred while demand fetches hold the source link)
+            self.prefetch.tick(self.now())
         # newly admitted requests need prefill
         for req in list(self.sched.running):
             if req.t_first_token is None:

@@ -300,6 +300,47 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     assert outs[0] == outs[1]
 
 
+
+def test_storage_tier_on_the_card_matches_the_cpu(cuda):
+    """A reduced partial hit, then a miss after the ancestor's node
+    fails, through a StorageCluster: one kv_restore launch per fetched
+    chunk on the card, tokens equal to the CPU run's."""
+    from repro_torch.cluster.storage import StorageCluster, StorageNode
+    cfg = reduce_config(get_config("lwm-7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    gpu_params["layers"] = [
+        {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(cuda)) for k, v in lp.items()}
+        for lp in params["layers"]]
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, 72)
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prompt[:32])
+    logs = []
+    for dev, p in (("cpu", params), (cuda, gpu_params)):
+        cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
+                                 replication=1, heal="manual")
+        entry = cluster.register_prefix(prompt[:32], kv_k, kv_v,
+                                        tokens_per_chunk=16,
+                                        resolutions=("240p",))
+        eng = LiveEngine(p, cfg, cluster, device=dev)
+        before = kv_ops.launches
+        r1 = eng.submit(prompt, reuse_prefix="by-tokens", reuse_tokens=64,
+                        max_new_tokens=4)
+        eng.run()
+        assert (r1.storage_hit, r1.reuse_tokens) == ("partial", 32)
+        chunks = len(entry.manifest.refs)
+        assert kv_ops.launches - before == (0 if dev == "cpu" else chunks)
+        eng.fail_node(r1.storage_node)
+        before = kv_ops.launches
+        r2 = eng.submit(prompt, reuse_prefix="by-tokens", reuse_tokens=32,
+                        max_new_tokens=4)
+        eng.run()
+        assert r2.storage_hit == "miss" and kv_ops.launches == before
+        logs.append(([eng.outputs[r.rid] for r in (r1, r2)],
+                     list(cluster.events)))
+    assert logs[0] == logs[1]
+
 def _scan_inputs(b, s, nh, hd, G, S, seed, device):
     rng = np.random.default_rng(seed)
 

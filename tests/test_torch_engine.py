@@ -2,7 +2,8 @@
 tests/test_live_engine.py::test_engine_reuse_matches_full_prefill, run
 against the port's own KVStore and held against the JAX LiveEngine on the
 same submits; each knob of the virtual-clock pipeline held against the
-JAX engine; and the refusal of the knobs that later slices bring."""
+JAX engine; the refusal of the knobs that later slices bring and of the
+JAX package's stores."""
 import jax
 import numpy as np
 import pytest
@@ -106,8 +107,7 @@ def test_engine_mixed_batch_matches_jax(tiny_cfg, tiny_params, torch_params,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fairness", object()), ("prefetch", object()), ("mesh", object()),
-    ("mesh_shards", 2), ("external_dispatch", True),
+    ("mesh", object()), ("mesh_shards", 2), ("external_dispatch", True),
 ])
 def test_engine_refuses_knobs_of_later_slices(knob, value, tiny_cfg,
                                               torch_params):
@@ -209,8 +209,13 @@ def test_wall_clock_engine_refuses_wan_options_as_jax(knob, value, tiny_cfg,
 
 
 def test_engine_refuses_other_stores(tiny_cfg, torch_params):
-    with pytest.raises(NotImplementedError, match="StorageCluster"):
-        LiveEngine(torch_params, tiny_cfg, JaxKVStore(), device="cpu")
+    """The JAX package's stores are not the port's: both are refused."""
+    from repro.cluster.storage import StorageCluster as JaxStorageCluster
+    from repro.cluster.storage import StorageNode as JaxStorageNode
+    for store in (JaxKVStore(),
+                  JaxStorageCluster([JaxStorageNode("n0")])):
+        with pytest.raises(TypeError, match="repro_torch.cluster.storage"):
+            LiveEngine(torch_params, tiny_cfg, store, device="cpu")
 
 
 def test_entry_points_raise_without_a_card_unless_told_cpu(tiny_cfg,

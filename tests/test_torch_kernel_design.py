@@ -33,9 +33,11 @@ from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
 # ---------------------------------------------------------------------------
 
 # (B, H, K, table width in pages, contexts, page size): chip_smoke.py's
-# decode batch at lwm-7b's and yi-34b's heads, and small shapes
+# decode batch at lwm-7b's and yi-34b's heads, its storage phase's one
+# request alone, and small shapes
 PLAN_CASES = [
     (3, 32, 32, 36, [543, 543, 543], 16),
+    (1, 32, 32, 36, [543], 16),
     (3, 56, 8, 36, [543, 543, 543], 16),
     (2, 8, 2, 8, [60, 1], 8),
     (4, 4, 1, 5, [33, 17, 9, 1], 8),
@@ -60,8 +62,10 @@ def test_split_plan_covers_every_page_once(B, H, K, bps, lens, ps):
 
 def test_split_plan_fills_the_card_at_the_path_shapes():
     """About two blocks per SM: 3 splits of ~12 pages at lwm-7b's heads,
-    11 of ~3 pages at yi-34b's (3 sequences, 36-page tables, 132 SMs)."""
+    11 of ~3 pages at yi-34b's (3 sequences, 36-page tables, 132 SMs),
+    and 9 of ~4 pages for one lwm-7b sequence alone."""
     assert pa_ops.plan_splits(3, 32, 32, 36, n_sm=132) == 3
+    assert pa_ops.plan_splits(1, 32, 32, 36, n_sm=132) == 9
     assert pa_ops.plan_splits(3, 56, 8, 36, n_sm=132) == 11
     assert pa_ops.plan_splits(12, 32, 32, 19, n_sm=132) == 1
     assert pa_ops.plan_splits(1, 8, 2, 2, n_sm=132) == 1  # one page pair
