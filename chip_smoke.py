@@ -30,11 +30,16 @@ JAX or of the JAX package.  Phases:
    the lwm-7b shape with more launches on the path; both are logged);
    then the token-delta ops on the codec's real 240p planes of the
    prefix (``pack_frames`` of a fetched chunk and of layer group 0's
-   whole prefix): counts set to 0, encode of each channel and the
-   chained one-frame decode, counts read; the results bit-equal to the
-   plain versions and to the numpy codec's ``ZIGZAG[plane_f -
-   plane_{f-1}]``, every frame rebuilt; then a random 64 x 1080 x 1920
-   stack and an unaligned 5 x 5 x 77 stack, each timed beside its bound;
+   whole prefix, 40 x 128 x 416): counts set to 0, one encode and one
+   stack decode (``token_delta_decode_frames`` from a zero frame) of each
+   channel, counts read; the results bit-equal to the plain versions, to
+   the plain one-frame decode chained and to the numpy codec's
+   ``ZIGZAG[plane_f - plane_{f-1}]``, every frame rebuilt, and group 0's
+   stack decoded in two calls equal to one; then a random 64 x 1080 x
+   1920 stack and an unaligned 5 x 5 x 77 stack, checked the same way and
+   by the chained one-frame op; the decode timed at the path's stacks and
+   the big one beside the chained one-frame decode in one graph, the
+   plain version, its bound and (context only) a uint8 ``torch.cumsum``;
 4. main path: a ``LiveEngine`` serves two requests that fetch the prefix
    and one plain request, 16 new tokens each; the kernels' launch counts
    are set to 0 just before and read just after, and must equal what the
@@ -130,7 +135,7 @@ from repro_torch.core.codec import KVCodec  # noqa: E402
 from repro_torch.core.adaptive import DecodeTable  # noqa: E402
 from repro_torch.core.layout import (  # noqa: E402
     IntraLayout, frame_geometry, pack_frames)
-from repro_torch.core.prediction import ZIGZAG  # noqa: E402
+from repro_torch.core.prediction import UNZIGZAG, ZIGZAG  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
@@ -143,7 +148,8 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
-    token_delta_decode_frame_ref, token_delta_encode_ref)
+    token_delta_decode_frame_ref, token_delta_decode_frames_ref,
+    token_delta_encode_ref)
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -166,6 +172,7 @@ SCAN_CHUNK = 64               # apply_ssm_full's chunk
 SCAN_TOL = 2e-4               # of the largest |y| or |state|
 LOGIT_TOL = 2e-4              # of the largest |logit|
 BIG_STACK = (64, 1080, 1920)  # a bandwidth-sized uint8 stack, 133 MB
+PLANE_STACK = (40, 128, 416)  # group 0's 240p plane stack of the prefix
 ODD_STACK = (5, 5, 77)        # H*W not a multiple of 16
 # the virtual-clock phase: one host rANS decoder whose modeled latency per
 # 16-token chunk is about what the host codec takes per chunk on the card's
@@ -278,6 +285,12 @@ def count_kernels_child() -> int:
                        mamba.ssm_head_dim, mamba.ssm_ngroups, mamba.ssm_state,
                        SEED + 6)
     calls["ssd_scan"] = lambda: ssd_ops.ssd_scan(*scan, chunk=SCAN_CHUNK)
+    video = torch.randint(0, 256, PLANE_STACK, device=dev, generator=g,
+                          dtype=torch.uint8)
+    zero = torch.zeros_like(video[0])
+    calls["token_delta_encode"] = lambda: td_ops.token_delta_encode(video)
+    calls["token_delta_decode_frames"] = (
+        lambda: td_ops.token_delta_decode_frames(zero, video))
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -323,9 +336,12 @@ def kernel_counts() -> dict:
     counts = json.loads(out.stdout.strip().splitlines()[-1])
     for name, c in counts.items():
         # what the sources launch: kv_restore one kernel, ssd_scan C.B^T
-        # then the scan, paged_attention its split kernel and, when it
-        # splits the pages, the merge
-        want = {"kv_restore_layers": 1, "ssd_scan": 2}.get(
+        # then the scan, the token-delta ops one kernel per stack,
+        # paged_attention its split kernel and, when it splits the pages,
+        # the merge
+        want = {"kv_restore_layers": 1, "ssd_scan": 2,
+                "token_delta_encode": 1,
+                "token_delta_decode_frames": 1}.get(
             name, 1 if c["splits"] == 1 else 2)
         log(f"[profile] {name}: {c['kernels']} CUDA kernels per op call "
             f"with a device record, {c['launches']} launches on the host"
@@ -551,32 +567,46 @@ def delta_bound(n_bytes: float):
     return bound(n_bytes, 3 * n_bytes)
 
 
+def chained_ref(prev, zres):
+    """The plain one-frame decode chained over the frames."""
+    frames = []
+    for f in range(zres.shape[0]):
+        prev = token_delta_decode_frame_ref(prev, zres[f])
+        frames.append(prev)
+    return torch.stack(frames)
+
+
+def check_decoded(what, frames, video, zres, prev) -> None:
+    """A decoded stack: bit-equal to the stack it came from, to the plain
+    version and to the plain one-frame decode chained."""
+    check(torch.equal(frames, video), f"stack decode lost a frame ({what})")
+    check(torch.equal(frames, token_delta_decode_frames_ref(prev, zres)),
+          f"token_delta_decode_frames != plain version ({what})")
+    check(torch.equal(frames, chained_ref(prev, zres)),
+          f"token_delta_decode_frames != chained one-frame decode ({what})")
+
+
 def token_delta_phase(dev, cfg, man):
     planes = prefix_planes(cfg, man)
-    # the path: every channel plane encoded, then decoded frame by frame
+    # the path: every channel plane encoded in one launch, then decoded in
+    # one launch from a zero reference frame
     torch.cuda.synchronize()
     td_ops.encode_launches = 0
-    td_ops.decode_frame_launches = 0
-    n_enc = n_dec = 0
+    td_ops.decode_launches = 0
     results = []
     for name, chans in planes:
         for c, plane in enumerate(chans):
             video = torch.as_tensor(plane, device=dev)
             zres = td_ops.token_delta_encode(video)
-            frames, prev = [], torch.zeros_like(video[0])
-            for f in range(video.shape[0]):
-                prev = td_ops.token_delta_decode_frame(prev, zres[f])
-                frames.append(prev)
-            n_enc += 1
-            n_dec += video.shape[0]
+            frames = td_ops.token_delta_decode_frames(
+                torch.zeros_like(video[0]), zres)
             results.append((f"{name} channel {c}", plane, video, zres,
                             frames))
     torch.cuda.synchronize()
     launches = {"token_delta_encode": td_ops.encode_launches,
-                "token_delta_decode_frame": td_ops.decode_frame_launches}
-    check(launches == {"token_delta_encode": n_enc,
-                       "token_delta_decode_frame": n_dec},
-          f"token_delta launches {launches}, calls {n_enc}, {n_dec}")
+                "token_delta_decode_frames": td_ops.decode_launches}
+    check(launches == dict.fromkeys(launches, len(results)),
+          f"token_delta launches {launches}, {len(results)} plane stacks")
     for what, plane, video, zres, frames in results:
         # the codec's TEMPORAL candidate: ZIGZAG[plane_f - plane_{f-1}]
         ref = np.concatenate([np.zeros_like(plane[:1]), plane[:-1]])
@@ -584,76 +614,136 @@ def token_delta_phase(dev, cfg, man):
               f"token_delta_encode != the codec's residual ({what})")
         check(torch.equal(zres, token_delta_encode_ref(video)),
               f"token_delta_encode != plain version ({what})")
-        prev = torch.zeros_like(video[0])
-        for f, frame in enumerate(frames):
-            check(torch.equal(frame, video[f]),
-                  f"chained decode lost frame {f} ({what})")
-            check(torch.equal(frame, token_delta_decode_frame_ref(
-                prev, zres[f])), f"decode_frame != plain ({what}, {f})")
-            prev = frame
+        check_decoded(what, frames, video, zres, torch.zeros_like(video[0]))
+    # group 0's stack in two calls, the second from the first's last frame
+    what, _, g0_video, g0_zres, frames = max(results,
+                                             key=lambda r: r[2].numel())
+    check(tuple(g0_video.shape) == PLANE_STACK,
+          f"group 0's plane stack is {tuple(g0_video.shape)}, not "
+          f"PLANE_STACK")
+    split = PLANE_STACK[0] // 2 + 1
+    head = td_ops.token_delta_decode_frames(torch.zeros_like(g0_video[0]),
+                                            g0_zres[:split])
+    tail = td_ops.token_delta_decode_frames(head[-1], g0_zres[split:])
+    check(torch.equal(torch.cat([head, tail]), frames),
+          f"{what} decoded in two calls split at frame {split} != one call")
     log(f"[kernel] token_delta on the prefix's 240p planes: "
         + ", ".join(f"{name} {tuple(ch[0].shape)} x {len(ch)} channels"
                     for name, ch in planes)
-        + f"; launches {launches}; bit-equal to the plain versions and the "
-        f"codec's ZIGZAG residuals, every frame rebuilt")
-    # a bandwidth-sized stack and an unaligned one, checked the same way
+        + f"; launches {launches} (one encode and one decode per plane "
+        f"stack); bit-equal to the plain versions, the chained one-frame "
+        f"decode and the codec's ZIGZAG residuals, every frame rebuilt; "
+        f"{what} split at frame {split} equals one call")
+    # a bandwidth-sized stack and an unaligned one, checked the same way,
+    # and decoded once more by the one-frame op (the kernel at F = 1)
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     stacks = {}
     for shape in (BIG_STACK, ODD_STACK):
         video = torch.randint(0, 256, shape, generator=g, device=dev,
                               dtype=torch.uint8)
-        e0, d0 = td_ops.encode_launches, td_ops.decode_frame_launches
+        e0, d0 = td_ops.encode_launches, td_ops.decode_launches
         zres = td_ops.token_delta_encode(video)
         check(torch.equal(zres, token_delta_encode_ref(video)),
               f"token_delta_encode != plain version at {shape}")
-        prev = torch.zeros_like(video[0])
+        zero = torch.zeros_like(video[0])
+        frames = td_ops.token_delta_decode_frames(zero, zres)
+        check_decoded(f"{shape}", frames, video, zres, zero)
+        prev = zero
         for f in range(shape[0]):
-            frame = td_ops.token_delta_decode_frame(prev, zres[f])
-            check(torch.equal(frame, video[f])
-                  and torch.equal(frame, token_delta_decode_frame_ref(
-                      prev, zres[f])), f"decode_frame at {shape}, {f}")
-            prev = frame
-        check((td_ops.encode_launches - e0, td_ops.decode_frame_launches - d0)
-              == (1, shape[0]), f"token_delta launches at {shape}")
+            prev = td_ops.token_delta_decode_frame(prev, zres[f])
+            check(torch.equal(prev, frames[f]),
+                  f"token_delta_decode_frame at {shape}, frame {f}")
+        check((td_ops.encode_launches - e0, td_ops.decode_launches - d0)
+              == (1, 1 + shape[0]), f"token_delta launches at {shape}")
         stacks[shape] = (video, zres)
-    log(f"[kernel] token_delta at {BIG_STACK} and {ODD_STACK}: bit-equal, "
-        f"every frame rebuilt")
-    # times: encode of the path's largest plane stack and of the
-    # bandwidth-sized stack; decode of two frames of each (first, last)
-    _, _, video, zres, _ = max(results, key=lambda r: r[2].numel())
+    log(f"[kernel] token_delta at {BIG_STACK} and {ODD_STACK}: one encode "
+        f"and one stack decode each, bit-equal to the plain versions; the "
+        f"chained one-frame decode bit-equal too, every frame rebuilt")
     big, big_z = stacks[BIG_STACK]
-    rows = []
-    for name, cases in (
-            ("token_delta_encode", [((video,), video.numel() * 2),
-                                    ((big,), big.numel() * 2)]),
-            ("token_delta_decode_frame",
-             [((zres[0], zres[-1]), zres[0].numel() * 3),
-              ((big_z[0], big_z[-1]), big_z[0].numel() * 3)])):
-        op = getattr(td_ops, name)
-        plain = (token_delta_encode_ref if name == "token_delta_encode"
-                 else token_delta_decode_frame_ref)
-        timed = []
-        for args, n_bytes in cases:
-            ms = graph_ms(lambda: op(*args))
-            eager_ms = time_ms(lambda: op(*args))
-            plain_ms = graph_ms(lambda: plain(*args))
-            b_ms, b_by = delta_bound(n_bytes)
-            log(f"[kernel] {name} {tuple(args[0].shape)}: device "
-                f"{ms * 1e3:.2f} us/launch (eager call {eager_ms * 1e3:.2f} "
-                f"us; plain version {plain_ms * 1e3:.2f} us; library: none "
-                f"(no single PyTorch call); bound {b_ms * 1e3:.3f} us by "
-                f"{b_by}, {n_bytes} bytes)")
-            timed.append((ms, plain_ms, b_ms, b_by))
-        ms, plain_ms, b_ms, b_by = timed[0]  # at the path's shape
-        rows.append(dict(name=name, route="cuda",
-                         source="src/repro_torch/kernels/token_delta/"
-                                "token_delta.cu",
-                         replaces="src/repro/kernels/token_delta/"
-                                  "token_delta.py:"
-                                  + ("39" if name == "token_delta_encode"
-                                     else "66"),
-                         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # encode (row C): the path's largest plane stack and the big stack
+    timed = []
+    for v in (g0_video, big):
+        ms = graph_ms(lambda: td_ops.token_delta_encode(v))
+        eager_ms = time_ms(lambda: td_ops.token_delta_encode(v))
+        plain_ms = graph_ms(lambda: token_delta_encode_ref(v))
+        n_bytes = 2 * v.numel()
+        b_ms, b_by = delta_bound(n_bytes)
+        log(f"[kernel] token_delta_encode {tuple(v.shape)}: device "
+            f"{ms * 1e3:.2f} us/launch (eager call {eager_ms * 1e3:.2f} us; "
+            f"plain version {plain_ms * 1e3:.2f} us; library: none (no "
+            f"single PyTorch call); bound {b_ms * 1e3:.3f} us by {b_by}, "
+            f"{n_bytes} bytes)")
+        timed.append((ms, plain_ms, b_ms, b_by))
+    src = "src/repro_torch/kernels/token_delta/token_delta.cu"
+    tpu = "src/repro/kernels/token_delta/token_delta.py:"
+    ms, plain_ms, b_ms, b_by = timed[0]
+    rows = [dict(name="token_delta_encode", route="cuda", source=src,
+                 replaces=tpu + "39", max_abs_err=0.0, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None)]
+    # decode (row D): the path's two stack shapes and the big stack, each
+    # beside the chained one-frame decode of the same stack in one graph
+    chunk_z = next(r[3] for r in results if r[0].startswith("chunk"))
+    unzz = torch.as_tensor(UNZIGZAG, device=dev)
+    dec = {}
+    for z in (chunk_z, g0_zres, big_z):
+        shape, F = tuple(z.shape), z.shape[0]
+        zero = torch.zeros_like(z[0])
+        iters = 100 if z.numel() < 1 << 24 else 10
+
+        def stack():
+            td_ops.token_delta_decode_frames(zero, z)
+
+        def chained():
+            prev = zero
+            for f in range(F):
+                prev = td_ops.token_delta_decode_frame(prev, z[f])
+        ms, eager_ms = graph_ms(stack, iters), time_ms(stack, iters)
+        chain_ms, chain_eager = graph_ms(chained, iters), time_ms(chained,
+                                                                 iters)
+        plain_ms = graph_ms(lambda: token_delta_decode_frames_ref(zero, z),
+                            max(iters // 10, 3))
+        # the reference frame read once, each residual byte read once and
+        # each output byte written once
+        n_bytes = (2 * F + 1) * z[0].numel()
+        b_ms, b_by = delta_bound(n_bytes)
+        chain_b, _ = delta_bound(3 * z.numel())
+        res = unzz[z.long()]
+        lib = torch.cumsum(res, 0, dtype=torch.uint8)
+        check(torch.equal(lib, td_ops.token_delta_decode_frames(zero, z)),
+              f"uint8 cumsum != the stack decode at {shape}")
+        lib_ms = graph_ms(lambda: torch.cumsum(res, 0, dtype=torch.uint8),
+                          iters)
+        log(f"[kernel] token_delta_decode_frames {shape}: device "
+            f"{ms * 1e3:.2f} us/launch (eager call {eager_ms * 1e3:.2f} us)")
+        log(f"[kernel] token_delta_decode_frame chained over {shape}: "
+            f"{F} launches in one graph {chain_ms * 1e3:.2f} us (eager "
+            f"{chain_eager * 1e3:.2f} us)")
+        log(f"[kernel] token_delta_decode_frames_ref {shape}: plain version "
+            f"{plain_ms * 1e3:.2f} us")
+        log(f"[kernel] token_delta decode {shape} bound: {b_ms * 1e3:.3f} us "
+            f"by {b_by}, {n_bytes} bytes ((2F + 1) H W); the chained "
+            f"pattern's own bound, 3 F H W bytes, {chain_b * 1e3:.3f} us")
+        log(f"[kernel] torch.cumsum(uint8) over residuals unzigzagged "
+            f"beforehand {shape}: {lib_ms * 1e3:.2f} us (context only: not "
+            f"the same function, the unzigzag lookup left out)")
+        dec[shape] = dict(ms=ms, plain_ms=plain_ms, b_ms=b_ms, b_by=b_by,
+                          chain_ms=chain_ms)
+    # the path decodes each channel's chunk stack and group 0's stack once
+    n_ch = len(planes[0][1])
+    loss = sum(n_ch * (d["ms"] - d["b_ms"]) for s, d in dec.items()
+               if s != BIG_STACK)
+    chain_loss = sum(n_ch * (d["chain_ms"] - d["b_ms"])
+                     for s, d in dec.items() if s != BIG_STACK)
+    log(f"[kernel] token_delta decode on the path: "
+        f"{launches['token_delta_decode_frames']} launches; loss over the "
+        f"bound {loss:.4f} ms per run (chained one-frame decode of the same "
+        f"stacks, one launch per frame: {chain_loss:.4f} ms)")
+    d = dec[PLANE_STACK]
+    rows.append(dict(name="token_delta_decode_frames", route="cuda",
+                     source=src, replaces=tpu + "66", max_abs_err=0.0,
+                     ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["b_ms"],
+                     bound_by=d["b_by"], library_ms=None))
     del stacks, big, big_z
     torch.cuda.empty_cache()
     return rows, launches

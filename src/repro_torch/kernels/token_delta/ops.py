@@ -9,18 +9,22 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.token_delta.ref import (
-    token_delta_decode_frame_ref, token_delta_encode_ref)
+    token_delta_decode_frame_ref, token_delta_decode_frames_ref,
+    token_delta_encode_ref)
 
-#: kernel launches so far, one counter per kernel; a run resets them to 0
-#: and reads them back to show which of its calls went through the kernels
+#: kernel launches so far, one counter per kernel (the decode kernel's
+#: counts both decode ops); a run resets them to 0 and reads them back to
+#: show which of its calls went through the kernels
 encode_launches = 0
-decode_frame_launches = 0
+decode_launches = 0
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 #: each launcher's C signature; both end in (device, stream)
 _ARGTYPES = {
-    "token_delta_encode": [_P, _P, _I64, _I64],      # video, out, n, hw
-    "token_delta_decode_frame": [_P, _P, _P, _I64],  # prev, zres, out, n
+    # video, out, n, hw
+    "token_delta_encode": [_P, _P, _I64, _I64],
+    # prev, zres, out, F, n (= H * W)
+    "token_delta_decode_frames": [_P, _P, _P, _I64, _I64],
 }
 _fns = {}
 
@@ -35,20 +39,15 @@ def _launcher(name: str):
     return fn
 
 
-def _check(op: str, named, dims: int) -> None:
+def _check(op: str, named) -> None:
+    """Same device, uint8, contiguous; the shapes are the op's to check."""
     dev = named[0][1].device
-    shape = named[0][1].shape
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{op}: {name} is on {t.device}, "
                              f"{named[0][0]} on {dev}")
         if t.dtype != torch.uint8:
             raise TypeError(f"{op}: {name} must be uint8, got {t.dtype}")
-        if t.dim() != dims or t.shape != shape:
-            want = "[F, H, W]" if dims == 3 else "two equal [H, W]"
-            raise ValueError(f"{op}: shapes "
-                             f"{[tuple(x.shape) for _, x in named]} are not "
-                             f"{want}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
 
@@ -64,7 +63,10 @@ def token_delta_encode(video: torch.Tensor) -> torch.Tensor:
         return token_delta_encode_ref(video)
     if video.device.type != "cuda":
         raise ValueError(f"token_delta_encode: no kernel for {video.device}")
-    _check("token_delta_encode", (("video", video),), 3)
+    _check("token_delta_encode", (("video", video),))
+    if video.dim() != 3:
+        raise ValueError(f"token_delta_encode: video {tuple(video.shape)} "
+                         f"is not [F, H, W]")
     out = torch.empty_like(video)
     F, H, W = video.shape
     if out.numel() == 0:
@@ -78,24 +80,45 @@ def token_delta_encode(video: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def token_delta_decode_frame(prev_frame: torch.Tensor,
-                             zres: torch.Tensor) -> torch.Tensor:
-    """prev [H, W] uint8 (zeros for frame 0), zres [H, W] uint8 -> the
-    frame ``prev + unzigzag(zres)`` mod 256, as a new tensor."""
+def token_delta_decode_frames(prev_frame: torch.Tensor,
+                              zres: torch.Tensor) -> torch.Tensor:
+    """prev [H, W] uint8, zres [F, H, W] uint8 -> [F, H, W] uint8: frame f
+    is ``prev`` plus the unzigzagged residuals of frames 0..f, mod 256, in
+    one launch.  Pass zeros as ``prev`` to decode a stack from its first
+    frame, and the last frame of the previous result to go on with the
+    next stack."""
     if zres.device.type == "cpu":
-        return token_delta_decode_frame_ref(prev_frame, zres)
+        return token_delta_decode_frames_ref(prev_frame, zres)
     if zres.device.type != "cuda":
-        raise ValueError(f"token_delta_decode_frame: no kernel for "
+        raise ValueError(f"token_delta_decode_frames: no kernel for "
                          f"{zres.device}")
-    _check("token_delta_decode_frame",
-           (("zres", zres), ("prev_frame", prev_frame)), 2)
+    _check("token_delta_decode_frames",
+           (("zres", zres), ("prev_frame", prev_frame)))
+    if zres.dim() != 3 or prev_frame.shape != zres.shape[1:]:
+        raise ValueError(f"token_delta_decode_frames: shapes "
+                         f"{tuple(prev_frame.shape)}, {tuple(zres.shape)} "
+                         f"are not [H, W], [F, H, W]")
     out = torch.empty_like(zres)
     if out.numel() == 0:
         return out
-    err = _launcher("token_delta_decode_frame")(
-        prev_frame.data_ptr(), zres.data_ptr(), out.data_ptr(),
-        zres.numel(), zres.device.index, _stream(zres))
+    F, H, W = zres.shape
+    err = _launcher("token_delta_decode_frames")(
+        prev_frame.data_ptr(), zres.data_ptr(), out.data_ptr(), F, H * W,
+        zres.device.index, _stream(zres))
     build.check(err, "token_delta")
-    global decode_frame_launches
-    decode_frame_launches += 1
+    global decode_launches
+    decode_launches += 1
     return out
+
+
+def token_delta_decode_frame(prev_frame: torch.Tensor,
+                             zres: torch.Tensor) -> torch.Tensor:
+    """prev [H, W] uint8 (zeros for frame 0), zres [H, W] uint8 -> the
+    frame ``prev + unzigzag(zres)`` mod 256, as a new tensor: the stack
+    decode's kernel at F = 1."""
+    if zres.device.type == "cpu":
+        return token_delta_decode_frame_ref(prev_frame, zres)
+    if zres.dim() != 2:
+        raise ValueError(f"token_delta_decode_frame: zres "
+                         f"{tuple(zres.shape)} is not [H, W]")
+    return token_delta_decode_frames(prev_frame, zres[None])[0]

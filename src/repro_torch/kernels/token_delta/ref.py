@@ -1,7 +1,7 @@
 """Plain PyTorch version of the token-delta (inter-frame) transform: the
 codec's TEMPORAL residual ``frame_f - frame_{f-1}`` (mod 256) through the
-zigzag sign interleave, and its one-frame inverse, by lookup in the
-codec's own ``ZIGZAG``/``UNZIGZAG`` tables."""
+zigzag sign interleave, and its inverse, one frame and a stack of
+frames, by lookup in the codec's own ``ZIGZAG``/``UNZIGZAG`` tables."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -36,3 +36,15 @@ def token_delta_decode_frame_ref(prev_frame: torch.Tensor,
     """prev [H, W] uint8 (zeros for frame 0), zres [H, W] uint8 -> the
     frame, ``prev + unzigzag(zres)`` mod 256, as a new tensor."""
     return prev_frame + _luts(zres.device)[1][zres.long()]
+
+
+def token_delta_decode_frames_ref(prev_frame: torch.Tensor,
+                                  zres: torch.Tensor) -> torch.Tensor:
+    """prev [H, W] uint8, zres [F, H, W] uint8 -> [F, H, W]: frame f is
+    ``prev`` plus the unzigzagged residuals of frames 0..f, mod 256; the
+    one-frame inverse chained over the frames."""
+    out = torch.empty_like(zres)
+    for f in range(zres.shape[0]):
+        prev_frame = token_delta_decode_frame_ref(prev_frame, zres[f])
+        out[f] = prev_frame
+    return out

@@ -23,7 +23,8 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
-    token_delta_decode_frame_ref, token_delta_encode_ref)
+    token_delta_decode_frame_ref, token_delta_decode_frames_ref,
+    token_delta_encode_ref)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.paged import cache as paged_cache  # noqa: E402
 from repro_torch.core.chunks import prefix_key  # noqa: E402
@@ -417,18 +418,22 @@ def test_mamba2_on_the_card_matches_the_cpu(cuda):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("shape", [
+TOKEN_DELTA_SHAPES = [
     (4, 240, 432),     # 240p planes, H*W a multiple of 16
     (5, 5, 77),        # H*W = 385: unaligned reference, a ragged tail
     (3, 3, 50),        # a vector straddles the end of frame 0
     (1, 1, 7),         # less than one vector
     (8, 1080, 1920),   # 1080p planes
-], ids=lambda s: "x".join(map(str, s)))
+]
+
+
+@pytest.mark.parametrize("shape", TOKEN_DELTA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 def test_token_delta_kernels_bit_equal(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     video = torch.randint(0, 256, shape, generator=g, device=cuda,
                           dtype=torch.uint8)
-    n_enc, n_dec = td_ops.encode_launches, td_ops.decode_frame_launches
+    n_enc, n_dec = td_ops.encode_launches, td_ops.decode_launches
     zres = td_ops.token_delta_encode(video)
     assert torch.equal(zres, token_delta_encode_ref(video))
     prev = torch.zeros(shape[1:], dtype=torch.uint8, device=cuda)
@@ -440,7 +445,7 @@ def test_token_delta_kernels_bit_equal(cuda, shape):
         prev = frame
     torch.cuda.synchronize()
     assert td_ops.encode_launches == n_enc + 1
-    assert td_ops.decode_frame_launches == n_dec + shape[0]
+    assert td_ops.decode_launches == n_dec + shape[0]
 
 
 def test_token_delta_kernels_on_unaligned_views(cuda):
@@ -473,6 +478,68 @@ def test_token_delta_kernels_reject_bad_arguments(cuda):
         td_ops.token_delta_decode_frame(video[0].cpu(), video[1])
     with pytest.raises(ValueError):
         td_ops.token_delta_decode_frame(video[0], video[1].t())
+
+
+@pytest.mark.parametrize("prev_kind", ["zero", "random"])
+@pytest.mark.parametrize("shape", TOKEN_DELTA_SHAPES + [
+    (40, 128, 416),    # the path's stack: group 0's 240p plane
+    (129, 64, 64),     # more frames than one round of segments (128)
+], ids=lambda s: "x".join(map(str, s)))
+def test_token_delta_decode_frames_bit_equal(cuda, shape, prev_kind):
+    """One launch decodes the whole stack, bit-equal to the plain version
+    (the one-frame decode chained over the frames)."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    zres = torch.randint(0, 256, shape, generator=g, device=cuda,
+                         dtype=torch.uint8)
+    prev = (torch.zeros(shape[1:], dtype=torch.uint8, device=cuda)
+            if prev_kind == "zero" else
+            torch.randint(0, 256, shape[1:], generator=g, device=cuda,
+                          dtype=torch.uint8))
+    n_dec = td_ops.decode_launches
+    got = td_ops.token_delta_decode_frames(prev, zres)
+    torch.cuda.synchronize()
+    assert td_ops.decode_launches == n_dec + 1
+    assert torch.equal(got, token_delta_decode_frames_ref(prev, zres))
+
+
+def test_token_delta_decode_frames_on_unaligned_views(cuda):
+    """Views that start one byte into their storage, and a frame size that
+    is not a multiple of 16, take the scalar path and still agree bit for
+    bit."""
+    base = torch.randint(0, 256, (20 * 64 * 64 + 64 * 64 + 1,),
+                         dtype=torch.uint8, device=cuda)
+    prev = base[1:4097].view(64, 64)
+    zres = base[4097:].view(20, 64, 64)
+    assert prev.data_ptr() % 16 != 0 and zres.data_ptr() % 16 != 0
+    assert torch.equal(td_ops.token_delta_decode_frames(prev, zres),
+                       token_delta_decode_frames_ref(prev, zres))
+    # aligned, H*W = 385
+    odd = base[16:16 + 20 * 385].view(20, 5, 77)
+    odd_prev = base[16 + 20 * 385:16 + 21 * 385].view(5, 77)
+    assert odd.data_ptr() % 16 == 0
+    assert torch.equal(td_ops.token_delta_decode_frames(odd_prev, odd),
+                       token_delta_decode_frames_ref(odd_prev, odd))
+
+
+def test_token_delta_decode_frames_rejects_bad_arguments(cuda):
+    zres = torch.zeros((3, 8, 16), dtype=torch.uint8, device=cuda)
+    prev = torch.zeros((8, 16), dtype=torch.uint8, device=cuda)
+    n_dec = td_ops.decode_launches
+    with pytest.raises(TypeError):
+        td_ops.token_delta_decode_frames(prev, zres.to(torch.int32))
+    with pytest.raises(TypeError):
+        td_ops.token_delta_decode_frames(prev.float(), zres)
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frames(prev[:4], zres)  # prev shape
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frames(prev, zres[0])  # not [F, H, W]
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frames(prev.cpu(), zres)  # device
+    with pytest.raises(ValueError):
+        td_ops.token_delta_decode_frames(prev, zres.transpose(0, 1))
+    assert td_ops.token_delta_decode_frames(prev, zres[:0]).shape == (
+        0, 8, 16)
+    assert td_ops.decode_launches == n_dec  # no launch for F = 0
 
 
 def test_virtual_clock_engine_on_the_card_matches_the_cpu(cuda):

@@ -3,7 +3,10 @@ CPU, through their plain versions: bit-equal to the JAX ops with the
 Pallas kernel (interpret mode) and with its jnp oracle, the one-frame
 decode round trip, zigzag over every byte against the codec's tables, and
 the encode of real packed frames against the numpy codec's TEMPORAL
-residual.  Twins of tests/test_kernels.py's token_delta tests."""
+residual.  Twins of tests/test_kernels.py's token_delta tests.  The stack
+decode (``token_delta_decode_frames``, one launch per stack on the card)
+is held against the JAX one-frame op chained frame by frame, and against
+the numpy codec's TEMPORAL reconstruction of real packed planes."""
 import numpy as np
 import pytest
 
@@ -16,6 +19,9 @@ from repro.kernels.token_delta.ops import (  # noqa: E402
     token_delta_encode as jax_encode)
 from repro.kernels.token_delta.token_delta import (  # noqa: E402
     _unzigzag as jax_unzigzag, _zigzag as jax_zigzag)
+
+from repro.core.prediction import (  # noqa: E402
+    MODE_RAW, MODE_TEMPORAL, predict_decode)
 
 from repro_torch.core.layout import (  # noqa: E402
     IntraLayout, frame_geometry, pack_frames)
@@ -106,4 +112,90 @@ def test_ops_take_no_other_device():
         ops.token_delta_encode(meta)
     with pytest.raises(ValueError, match="no kernel"):
         ops.token_delta_decode_frame(meta[0], meta[1])
-    assert ops.encode_launches == 0 and ops.decode_frame_launches == 0
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.token_delta_decode_frames(meta[0], meta)
+    assert ops.encode_launches == 0 and ops.decode_launches == 0
+
+
+def _stack(F, H, W, seed, prev_kind):
+    """Seeded residuals [F, H, W] and a reference frame, zero or random."""
+    rng = np.random.default_rng(seed)
+    zres = rng.integers(0, 256, (F, H, W)).astype(np.uint8)
+    prev = (np.zeros((H, W), np.uint8) if prev_kind == "zero"
+            else rng.integers(0, 256, (H, W)).astype(np.uint8))
+    return prev, zres
+
+
+@pytest.mark.parametrize("prev_kind", ["zero", "random"])
+@pytest.mark.parametrize("hw", [(8, 128), (5, 77), (3, 50)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("F", [1, 2, 5, 17])
+def test_decode_frames_matches_jax_chained(F, hw, prev_kind):
+    """One call over the stack == the JAX one-frame op chained frame by
+    frame, with the Pallas kernel (interpret mode) and its jnp oracle."""
+    prev, zres = _stack(F, *hw, seed=F * 100 + hw[1], prev_kind=prev_kind)
+    got = ops.token_delta_decode_frames(torch.from_numpy(prev),
+                                        torch.from_numpy(zres)).numpy()
+    assert got.dtype == np.uint8 and got.shape == zres.shape
+    for use_kernel in (True, False):
+        jprev = jnp.asarray(prev)
+        for f in range(F):
+            jprev = jax_decode_frame(jprev, jnp.asarray(zres[f]),
+                                     use_kernel=use_kernel)
+            assert np.array_equal(got[f], np.asarray(jprev)), (use_kernel, f)
+
+
+@pytest.mark.parametrize("split", [1, 8, 16])
+def test_decode_frames_split_at_a_frame_equals_one_call(split):
+    """A stack decoded in two calls, the second from the first's last
+    frame, equals one call over the whole stack."""
+    prev, zres = map(torch.from_numpy, _stack(17, 5, 77, seed=split,
+                                              prev_kind="random"))
+    whole = ops.token_delta_decode_frames(prev, zres)
+    head = ops.token_delta_decode_frames(prev, zres[:split])
+    tail = ops.token_delta_decode_frames(head[-1], zres[split:])
+    assert torch.equal(torch.cat([head, tail]), whole)
+
+
+@pytest.mark.parametrize("hw", [(8, 128), (3, 50)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_decode_frames_of_one_frame_is_decode_frame(hw):
+    prev, zres = map(torch.from_numpy, _stack(1, *hw, seed=7,
+                                              prev_kind="random"))
+    got = ops.token_delta_decode_frames(prev, zres)
+    assert got.shape == (1,) + hw
+    assert torch.equal(got[0], ops.token_delta_decode_frame(prev, zres[0]))
+
+
+def test_decode_frames_of_no_frames_is_empty():
+    prev, zres = map(torch.from_numpy, _stack(0, 8, 128, seed=0,
+                                              prev_kind="zero"))
+    got = ops.token_delta_decode_frames(prev, zres)
+    assert got.shape == (0, 8, 128) and got.dtype == torch.uint8
+
+
+def test_decode_frames_rebuilds_packed_planes(synthetic_kv):
+    """Real planes: each channel of quantized KV packed into 240p frames,
+    encoded, then decoded in one call from a zero reference, equals the
+    plane and the numpy codec's reconstruction with frame 0 RAW and every
+    later frame TEMPORAL."""
+    kv_k, _, _ = synthetic_kv(64, 3, 32, 128, seed=5)  # lwm-7b's K, hd
+    q, _ = quantize(kv_k)
+    lay = IntraLayout(32, 128, 4, 4)
+    video = pack_frames(q, lay, frame_geometry(q.shape[0], lay, "240p"))
+    F = video.shape[0]
+    assert F > 2
+    modes = np.full((F, video.shape[-1]), MODE_TEMPORAL, np.uint8)
+    modes[0] = MODE_RAW
+    zres = np.empty_like(video)
+    for c in range(video.shape[-1]):
+        plane = np.ascontiguousarray(video[..., c])
+        zres[..., c] = ops.token_delta_encode(
+            torch.from_numpy(plane)).numpy()
+    codec = predict_decode(zres, modes)  # [F, FH, FW, 3]
+    for c in range(video.shape[-1]):
+        got = ops.token_delta_decode_frames(
+            torch.zeros(video.shape[1:3], dtype=torch.uint8),
+            torch.from_numpy(np.ascontiguousarray(zres[..., c]))).numpy()
+        assert np.array_equal(got, video[..., c])
+        assert np.array_equal(got, codec[..., c])

@@ -5,14 +5,17 @@ card, in alternating turns.
     python3 tools/kernel_ab.py --other DIR   # DIR: another checkout
 
 Each turn is a fresh process that imports ``repro_torch`` from one
-checkout, builds its ``paged_attention``, ``ssd_scan`` and
-``kv_restore`` sources and times one op call (device time of a
+checkout, builds its ``paged_attention``, ``ssd_scan``, ``kv_restore``
+and ``token_delta`` sources and times one op call (device time of a
 CUDA-graph replay, as ``chip_smoke.py`` times it) at the shapes of
 ``chip_smoke.py``: ``paged_attention`` at lwm-7b's and yi-34b's heads
 over three 543-token contexts, ``ssd_scan`` at mamba2-2.7b's prefill,
 ``kv_restore`` on one layer of one 8-token frame of lwm-7b and, in a
-checkout that has ``kv_restore_layers``, on one 3-layer 16-token chunk.
-The turns run other,
+checkout that has ``kv_restore_layers``, on one 3-layer 16-token chunk;
+the token-delta decode of a 40 x 128 x 416 stack (group 0's 240p plane)
+and of a 64 x 1080 x 1920 stack, as the one-frame op chained over the
+frames in one graph and, in a checkout that has
+``token_delta_decode_frames``, as one call.  The turns run other,
 this, this, other; each prints one JSON line, and the script ends with
 the card's name and power limit.  Imports nothing of JAX.
 """
@@ -34,6 +37,7 @@ def turn(root: str) -> dict:
     from repro_torch.kernels.kv_restore import ops as kv_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.token_delta import ops as td_ops
 
     dev = torch.device("cuda", 0)
 
@@ -88,6 +92,21 @@ def turn(root: str) -> dict:
     if hasattr(kv_ops, "kv_restore_layers"):
         res["kv_restore_layers lwm-7b chunk us"] = graph_us(
             lambda: kv_ops.kv_restore_layers(pages, (0, 1, 2), q, sc, slots))
+    for shape in ((40, 128, 416), (64, 1080, 1920)):
+        z = torch.randint(0, 256, shape, device=dev, generator=g,
+                          dtype=torch.uint8)
+        zero = torch.zeros_like(z[0])
+        tag = "x".join(map(str, shape))
+
+        def chained():
+            prev = zero
+            for f in range(shape[0]):
+                prev = td_ops.token_delta_decode_frame(prev, z[f])
+        res[f"token_delta_decode_frame chained {tag} us"] = graph_us(
+            chained, iters=10)
+        if hasattr(td_ops, "token_delta_decode_frames"):
+            res[f"token_delta_decode_frames {tag} us"] = graph_us(
+                lambda: td_ops.token_delta_decode_frames(zero, z))
     return res
 
 
