@@ -24,10 +24,13 @@ JAX or of the JAX package.  Phases:
    remainder group and with a real token in row 0 beside dropped tokens,
    and the single-layer ``kv_restore`` timed at one 8-token frame;
    ``paged_attention`` within 1e-4 at phase 4's batch of three, at phase
-   5b's one request alone and at yi-34b's GQA head shape, with the number
-   of page-axis splits and phase 1's kernels per call); times beside the
-   bound (``paged_attention``'s row in the kernel table takes the times of
-   the lwm-7b shape with more launches on the path; both are logged);
+   5b's one request alone, at each decode step shape of phase 5c's fleet
+   (``FLEET_BATCHES``) and at yi-34b's GQA head shape, each in block
+   tables as wide as the cache's, with the number of page-axis splits
+   and phase 1's kernels per call); times beside the bound
+   (``paged_attention``'s row in the kernel table holds the means over
+   lwm-7b's shapes weighted by their launches on the path; each shape
+   is logged with its launches and loss);
    then the token-delta ops on the codec's real 240p planes of the
    prefix (``pack_frames`` of a fetched chunk and of layer group 0's
    whole prefix, 40 x 128 x 416): counts set to 0, one encode and one
@@ -68,6 +71,28 @@ JAX or of the JAX package.  Phases:
    steps; every fetch's pages must equal the codec's frames; the
    cluster's and the prefetcher's event logs, each request's TTFT and
    fetch time, and the phase's wall time are logged;
+5c. fleet: a ``LiveFleet`` of 4 full-width engines sharing the one copy
+   of the weights, on the virtual clock (sync fetches), behind the
+   prefix-affinity router, one ``FairScheduler(max_inflight=1)`` and a
+   two-node cluster (replication 1, manual heal) holding phase 5b's
+   encoded 256-token ancestor and the set-up's 512-token prefix (no new
+   encode); five prefix requests of three users and three plain ones,
+   3 new tokens each: the ancestor fetched, its storage node failed
+   (scripted by dispatch index), the ancestor restored locally
+   (``local_restore``: a real restore at zero network time), the prefix
+   fetched and restored locally, the ancestor missed once.  The counts
+   are set to 0 before and read after, overall and per node:
+   ``kv_restore`` must equal the chunks restored, ``paged_attention``
+   the layers times each node's decode steps; every restore's pages
+   must equal the codec's frames; tokens must equal phase 4's for its
+   prompts, a local hit's the full hit's and the miss's those of a plain
+   prefill of its prompt alone; every decode step's shape (contexts,
+   block-table width) must be one of ``FLEET_BATCHES``, and all of them
+   must occur; the router, fairness and
+   cluster lookup logs and the local hits must equal those of the host
+   ``FleetSimulator`` run on the same script.  Per request the node,
+   hit kind, modeled and wall TTFT; per node the dispatches and
+   launches; the peak memory and the phase's wall time are logged;
 6. reference: the same engine at a reduced size on the card and on the
    CPU (plain versions) must generate the same tokens; so must the
    storage script of phase 5b, with equal cluster and prefetcher event
@@ -122,7 +147,10 @@ import torch  # noqa: E402
 
 from repro_torch.cluster.costmodel import CHIPS, EngineCostModel  # noqa: E402
 from repro_torch.cluster.fairness import FairScheduler  # noqa: E402
+from repro_torch.cluster.fleet import (  # noqa: E402
+    FleetSimulator, LiveFleet)
 from repro_torch.cluster.network import BandwidthTrace  # noqa: E402
+from repro_torch.cluster.simulator import MethodSpec  # noqa: E402
 from repro_torch.cluster.staging import (  # noqa: E402
     HostStagingTier, PrefetchManager)
 from repro_torch.cluster.storage import (  # noqa: E402
@@ -136,6 +164,7 @@ from repro_torch.core.adaptive import DecodeTable  # noqa: E402
 from repro_torch.core.layout import (  # noqa: E402
     IntraLayout, frame_geometry, pack_frames)
 from repro_torch.core.prediction import UNZIGZAG, ZIGZAG  # noqa: E402
+from repro_torch.core.scheduler import Request  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
@@ -180,16 +209,61 @@ ODD_STACK = (5, 5, 77)        # H*W not a multiple of 16
 # one chunk's transmit takes as long as its decode, so that pipelining the
 # two shows
 VIRTUAL_DECODE_S = 0.02
+PAGE_SIZE = 16
+
+
+def table_width(prompt_len: int, new_tokens: int) -> int:
+    """Pages in a sequence's block table: the engine gives each request
+    rows for its prompt and its new tokens when it is admitted."""
+    return -(-(prompt_len + new_tokens) // PAGE_SIZE)
+
+
 # the decode contexts at the main path's last step: prefix + suffix + new
 # tokens - 1, for the two reuse requests and the plain one
 DECODE_CTX = [PREFIX_TOKENS + SUFFIX_TOKENS + NEW_TOKENS - 1] * 3
+# their block tables' width
+DECODE_WIDTH = table_width(PREFIX_TOKENS + SUFFIX_TOKENS, NEW_TOKENS)
 # the storage phase's decode context at its last step: one request alone
 STORAGE_CTX = DECODE_CTX[:1]
+# the fleet phase: serving nodes, new tokens per request, and the kinds of
+# cluster event whose order the dispatch sequence alone sets (a missed
+# prefix's re-admission rides on its prefill's first token, a clock)
+FLEET_NODES = 4
+FLEET_NEW_TOKENS = 3
+FLEET_LOOKUP_KINDS = ("full", "partial", "miss", "fail", "recover",
+                      "replicate")
+# the fleet's decode steps, as the affinity node and the plain nodes batch
+# them on the modeled clock (which alone sets them, so they are the same
+# in every run).  A (the ancestor, half the prefix) and P (the
+# prefix) each with the suffix; the plain prompt is as long as P's
+FLEET_A = PREFIX_TOKENS // 2 + SUFFIX_TOKENS
+FLEET_P = PREFIX_TOKENS + SUFFIX_TOKENS
+
+
+def decode_batch(*seqs) -> tuple:
+    """One decode step over sequences given as (prompt length, index of
+    the token the step makes): (their contexts, sorted; the width of the
+    step's block tables)."""
+    return (tuple(sorted(n + k for n, k in seqs)),
+            max(table_width(n, FLEET_NEW_TOKENS) for n, _ in seqs))
+
+
+FLEET_BATCHES = (decode_batch((FLEET_A, 1)),
+                 decode_batch((FLEET_A, 1), (FLEET_A, 2)),
+                 decode_batch((FLEET_A, 2)),
+                 decode_batch((FLEET_A, 1), (FLEET_P, 2)),
+                 decode_batch((FLEET_A, 2), (FLEET_P, 1)),
+                 decode_batch((FLEET_P, 1)),
+                 decode_batch((FLEET_P, 1), (FLEET_P, 2)),
+                 decode_batch((FLEET_P, 2)))
 # paged_attention's cases, held, timed and counted at the paths' shapes:
-# (case, config, decode contexts, seed)
-ATTN_CASES = (("lwm-7b", "lwm-7b", DECODE_CTX, 2),
-              ("lwm-7b B=1", "lwm-7b", STORAGE_CTX, 4),
-              ("yi-34b", "yi-34b", DECODE_CTX, 3))
+# (case, config, decode contexts, block-table width, seed)
+ATTN_CASES = ((("lwm-7b", "lwm-7b", DECODE_CTX, DECODE_WIDTH, 2),
+               ("lwm-7b B=1", "lwm-7b", STORAGE_CTX, DECODE_WIDTH, 4),
+               ("yi-34b", "yi-34b", DECODE_CTX, DECODE_WIDTH, 3))
+              + tuple((f"lwm-7b fleet ctx {list(lens)} w {width}", "lwm-7b",
+                       list(lens), width, 7 + i)
+                      for i, (lens, width) in enumerate(FLEET_BATCHES)))
 
 
 def log(*a) -> None:
@@ -237,18 +311,18 @@ def bound(n_bytes: float, n_flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_inputs(dev, H, K, hd, ps, lens, seed):
-    """Decode attention over padded block tables, as the cache lays them
-    out: (q, k_pages, v_pages, block_tables, context_lens)."""
+def attention_inputs(dev, H, K, hd, ps, lens, width, seed):
+    """Decode attention over block tables ``width`` pages wide, as the
+    cache lays them out: (q, k_pages, v_pages, block_tables,
+    context_lens)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(lens)
-    bps = max(-(-n // ps) for n in lens) + 2  # padded tables, as the cache
-    P = B * bps
+    P = B * width
     q = torch.randn(B, H, hd, device=dev, generator=g)
     kp = torch.randn(P, ps, K, hd, device=dev, generator=g)
     vp = torch.randn(P, ps, K, hd, device=dev, generator=g)
-    bt = torch.randperm(P, device=dev, generator=g)[:B * bps]
-    bt = bt.reshape(B, bps).to(torch.int32)
+    bt = torch.randperm(P, device=dev, generator=g)
+    bt = bt.reshape(B, width).to(torch.int32)
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kp, vp, bt, cl
 
@@ -272,10 +346,10 @@ def count_kernels_child() -> int:
     calls = {"kv_restore_layers": lambda: kv_ops.kv_restore_layers(
         pages, (0, 1, 2), q, scales, slots)}
     splits = {}
-    for case, arch, lens, seed in ATTN_CASES:
+    for case, arch, lens, width, seed in ATTN_CASES:
         cfg = lwm if arch == lwm.name else yi
         args = attention_inputs(dev, cfg.num_heads, cfg.num_kv_heads,
-                                cfg.head_dim, 16, lens, seed)
+                                cfg.head_dim, PAGE_SIZE, lens, width, seed)
         name = f"paged_attention {case}"
         calls[name] = lambda a=args: pa_ops.paged_attention(*a)
         splits[name] = pa_ops.plan_splits(
@@ -491,8 +565,10 @@ def kv_restore_phase(dev, cfg, man, n_kernels: int):
                 bound_by=b_by, library_ms=None)
 
 
-def paged_attention_case(dev, H, K, hd, ps, lens, seed, n_kernels: int):
-    q, kp, vp, bt, cl = attention_inputs(dev, H, K, hd, ps, lens, seed)
+def paged_attention_case(dev, H, K, hd, ps, lens, width, seed,
+                         n_kernels: int):
+    q, kp, vp, bt, cl = attention_inputs(dev, H, K, hd, ps, lens, width,
+                                         seed)
     B, bps = bt.shape
     want = paged_attention_ref(q, kp, vp, bt, cl)
     got = pa_ops.paged_attention(q, kp, vp, bt, cl)
@@ -522,7 +598,8 @@ def paged_attention_case(dev, H, K, hd, ps, lens, seed, n_kernels: int):
     n_bytes = 2 * ctx * K * hd * 4 + 2 * B * H * hd * 4 \
         + 4 * sum(-(-n // ps) for n in lens) + 4 * B
     b_ms, b_by = bound(n_bytes, 4 * ctx * H * hd + 5 * ctx * H)
-    log(f"[kernel] paged_attention H={H} K={K} hd={hd} ps={ps} ctx={lens}: "
+    log(f"[kernel] paged_attention H={H} K={K} hd={hd} ps={ps} ctx={lens} "
+        f"width {bps}: "
         f"n_split {n_split} "
         f"({B * K * -(-(H // K) // pa_ops.HEAD_TILE) * n_split} blocks), "
         f"{n_kernels} "
@@ -1019,7 +1096,8 @@ def storage_script(dev, cfg, params, prefix, prompt, kv_k, kv_v, man, *,
     and ``paged_attention`` the layers times the decode steps.  Every
     fetch's restored pages are checked against the codec's frames while
     the request holds them.  Returns the requests, their tokens, the
-    counts and the cluster's and prefetcher's event logs."""
+    counts, the cluster's and prefetcher's event logs and the ancestor's
+    entry (its encoded manifest)."""
     n_anc = len(prefix) // 2
     cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
                              replication=1, heal="manual")
@@ -1119,13 +1197,13 @@ def storage_script(dev, cfg, params, prefix, prompt, kv_k, kv_v, man, *,
     serve_one("R4", len(prefix), "host")
     check(("host_hit", man.prefix) in prefetch.events,
           f"no host hit for the prefix in {prefetch.events}")
-    return out, list(cluster.events), list(prefetch.events)
+    return out, list(cluster.events), list(prefetch.events), anc
 
 
 def storage_path(dev, cfg, params, man, prefix, prompts, kv_k, kv_v,
                  wall_outputs, frames):
     t0 = time.perf_counter()
-    out, events, pf_events = storage_script(
+    out, events, pf_events, anc = storage_script(
         dev, cfg, params, prefix, prompts[0], kv_k, kv_v, man,
         new_tokens=NEW_TOKENS, n_pages=N_PAGES, frames=frames,
         log_fn=lambda s: log(f"[storage] {s}"))
@@ -1143,7 +1221,7 @@ def storage_path(dev, cfg, params, man, prefix, prompts, kv_k, kv_v,
         + f" = {launches['kv_restore']} (the fetched chunks); R2's tokens "
         f"equal a plain prefill's, R4's phase 4's; phase wall time "
         f"{wall:.2f} s (encode of the ancestor and page checks included)")
-    return launches
+    return launches, anc
 
 
 def fair_script(dev, cfg, params, prefix, prompts, kv_k, kv_v):
@@ -1180,6 +1258,289 @@ def fair_script(dev, cfg, params, prefix, prompts, kv_k, kv_v):
     return ([eng.outputs[r.rid] for r in reqs],
             [list(r.token_times) for r in reqs], list(fair.events),
             list(cluster.events))
+
+
+# -- phase 5c: a fleet of engines behind the prefix-affinity router ---------
+
+def instrument(fleet):
+    """Per node, the kernel launches made inside its engine's ``step``,
+    ``dispatch_fetch`` and ``local_restore`` (none of them calls
+    another); per request, the wall time of its ``dispatch_fetch`` or
+    ``local_restore``, ending in a device sync."""
+    per = [{"kv_restore": 0, "paged_attention": 0} for _ in fleet.engines]
+    dispatch_wall = {}
+    for k, eng in enumerate(fleet.engines):
+        for name in ("step", "dispatch_fetch", "local_restore"):
+            def counted(*a, _fn=getattr(eng, name), _k=k, _name=name):
+                kv0, pa0 = kv_ops.launches, pa_ops.launches
+                t0 = time.perf_counter()
+                out = _fn(*a)
+                if _name != "step":
+                    torch.cuda.synchronize()
+                    dispatch_wall[a[0].rid] = time.perf_counter() - t0
+                per[_k]["kv_restore"] += kv_ops.launches - kv0
+                per[_k]["paged_attention"] += pa_ops.launches - pa0
+                return out
+            setattr(eng, name, counted)
+    return per, dispatch_wall
+
+
+def fleet_path(dev, cfg, params, man, raw_kv_bytes, anc, prefix, prompts,
+               plain, wall_outputs, frames):
+    """``LiveFleet`` of ``FLEET_NODES`` full-width engines on the virtual
+    clock (sync fetches) over one copy of the weights, behind the
+    affinity router, one ``FairScheduler(max_inflight=1)`` and a two-node
+    cluster (replication 1, manual heal) that holds phase 5b's encoded
+    256-token ancestor A and the set-up's 512-token prefix P, P's parent
+    A.  The router sends the chain to one node, whose local KV holds
+    ``PREFIX_TOKENS`` tokens, so caching P evicts A.  Three plain
+    requests go to the idle nodes.  Dispatch order (by the fair
+    scheduler, lagging user first): A fetched (full hit); A's storage
+    node fails; A restored locally; P fetched for bob (full hit on the
+    other node; carol, charged for her plain requests' decode work, now
+    lags bob); P restored locally for carol; A asked once more, neither
+    local nor stored: a miss and a plain prefill, held against one of
+    A's prompt alone.  Every restore's pages are checked against the
+    codec's frames at the request's first token; the same script runs
+    on the host through the analytic ``FleetSimulator`` and must give
+    the same router, fairness and cluster logs; every decode step's
+    shape must be one of ``FLEET_BATCHES``.  Returns the launches and
+    ``paged_attention``'s launches by decode step shape."""
+    n_anc = anc.manifest.n_tokens
+    suffix = prompts[0][PREFIX_TOKENS:]
+    prompt_of = {"A": np.concatenate([prefix[:n_anc], suffix]),
+                 "P": prompts[0], None: plain}
+    # (user, tier, prefix), submitted in this order; rid = index
+    script = [("alice", "premium", "A"), ("bob", "standard", "A"),
+              ("carol", "free", "P"), ("bob", "standard", "P"),
+              ("alice", "premium", "A"), ("carol", "free", None),
+              ("carol", "free", None), ("carol", "free", None)]
+    want_hit = ["full", "local", "local", "full", "miss", None, None, None]
+    cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
+                             replication=1, heal="manual")
+    cluster.register(StoredPrefix.from_manifest(
+        anc.manifest, raw_kv_bytes=anc.raw_kv_bytes,
+        token_ids=np.asarray(prefix[:n_anc])))
+    cluster.register(StoredPrefix.from_manifest(
+        man, raw_kv_bytes=raw_kv_bytes, parent=anc.key,
+        token_ids=np.asarray(prefix)))
+    key_of = {"A": anc.key, "P": man.prefix, None: None}
+    doomed = cluster.primary_node(anc.key).node_id
+    check(cluster.primary_node(man.prefix).node_id != doomed,
+          "A and P share a storage node: P's fetch would miss")
+    churn = [(1, "fail", doomed)]
+    trace, table, _, _ = virtual_net(man)
+    reqs = [Request(rid=i, arrival=0.0, prompt_len=len(prompt_of[name]),
+                    reuse_tokens=len(prompt_of[name]) - len(suffix)
+                    if name else 0, prefix=key_of[name],
+                    max_new_tokens=FLEET_NEW_TOKENS, user=user,
+                    slo_tier=tier)
+            for i, (user, tier, name) in enumerate(script)]
+    # the chain's node holds its five requests' rows at once at most; each
+    # plain node one request's
+    need = [table_width(r.prompt_len, r.max_new_tokens) for r in reqs]
+    n_pages = max(sum(n for n, (_, _, name) in zip(need, script) if name),
+                  max(need))
+
+    t_check = [0.0]
+    wall_first = {}
+    holder = {}
+
+    def on_token(req, tok, t):
+        if len(req.token_times) != 1:
+            return
+        t1 = time.perf_counter()
+        wall_first[req.rid] = t1 - holder["t0"] - t_check[0]
+        if req.storage_hit in ("full", "local"):
+            fleet = holder["fleet"]
+            eng = fleet.engines[fleet.placement[req.rid]]
+            n_kv, n_pa = kv_ops.launches, pa_ops.launches
+            check_restored_pages(eng, cfg, cluster.catalog[req.prefix]
+                                 .manifest, req.rid, frames)
+            check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
+                  "page check launched a kernel")
+            holder["checked"].append(req.rid)
+        t_check[0] += time.perf_counter() - t1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fair = FairScheduler(max_inflight=1)
+    fleet = LiveFleet(
+        params, cfg, cluster, n_nodes=FLEET_NODES, bandwidth=trace,
+        policy="affinity", fairness=fair, local_kv_tokens=PREFIX_TOKENS,
+        churn_at_dispatch=churn, device=dev,
+        engine_kw=dict(n_pages=n_pages, max_running=16,
+                       decode_table=table, use_table_sizes=True,
+                       adaptive=False, resolution=RESOLUTION,
+                       resolutions=(RESOLUTION,),
+                       cost=EngineCostModel(cfg, CHIPS["h20"], 2),
+                       on_token=on_token))
+    holder.update(fleet=fleet, checked=[])
+    check(all(e.params is params for e in fleet.engines),
+          "the engines do not share one copy of the weights")
+    per_node, dispatch_wall = instrument(fleet)
+    for r, (user, tier, name) in zip(reqs, script):
+        fleet.submit(prompt_of[name], prefix_key=r.prefix,
+                     reuse_tokens=r.reuse_tokens,
+                     max_new_tokens=FLEET_NEW_TOKENS, user=user,
+                     slo_tier=tier)
+    # every decode step's shape, as the engines hand it to the model
+    batches = []
+    decode_paged = paged_model.decode_paged
+
+    def recorded(params, cfg, tokens, positions, cache, seq_ids):
+        batches.append((tuple(sorted((positions + 1).tolist())),
+                        cache.block_table_array(seq_ids).shape[1]))
+        return decode_paged(params, cfg, tokens, positions, cache, seq_ids)
+
+    kv_ops.launches = 0
+    pa_ops.launches = 0
+    holder["t0"] = time.perf_counter()
+    with mock.patch.object(paged_model, "decode_paged", recorded):
+        fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - holder["t0"] - t_check[0]
+    launches = {"kv_restore": kv_ops.launches,
+                "paged_attention": pa_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    done = {r.rid: r for e in fleet.engines for r in e.finished}
+    check(sorted(done) == list(range(len(script))),
+          f"finished {sorted(done)} of {len(script)} requests")
+    out = {rid: fleet.engines[fleet.placement[rid]].outputs[rid]
+           for rid in done}
+    hits = [done[i].storage_hit for i in range(len(script))]
+    check(hits == want_hit, f"hit kinds {hits}, expected {want_hit}")
+    check(("fail", "", doomed) in cluster.events,
+          f"{doomed} did not fail: {cluster.events}")
+    check(len({fleet.placement[i] for i, (_, _, name) in enumerate(script)
+               if name}) == 1, f"the chain is split: {fleet.placement}")
+    restored = [i for i, h in enumerate(hits) if h in ("full", "local")]
+    check(sorted(holder["checked"]) == restored,
+          f"pages checked for {holder['checked']}, restored {restored}")
+
+    # tokens: P's prompt and the plain prompt are phase 4's; a local hit
+    # gives the full hit's tokens for the same prompt
+    for i, (_, _, name) in enumerate(script):
+        if name in ("P", None):
+            ref = wall_outputs[0 if name == "P" else 2][:FLEET_NEW_TOKENS]
+            check(out[i] == ref, f"fleet rid {i} ({name}): {out[i]} != "
+                  f"phase 4's {ref}")
+        check(len(out[i]) == FLEET_NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in out[i]),
+              f"fleet rid {i}: bad output {out[i]}")
+    check(out[1] == out[0] and out[2] == out[3],
+          f"a local hit's tokens differ from the full hit's: {out}")
+    # A's miss is a plain prefill: held against one of A's prompt alone
+    miss = want_hit.index("miss")
+    alone = LiveEngine(params, cfg, KVStore(), device=dev,
+                       n_pages=table_width(FLEET_A, FLEET_NEW_TOKENS))
+    r = alone.submit(prompt_of["A"], max_new_tokens=FLEET_NEW_TOKENS)
+    alone.run()
+    check(alone.outputs[r.rid] == out[miss],
+          f"fleet rid {miss} (A's miss) {out[miss]} != a plain prefill's "
+          f"{alone.outputs[r.rid]}")
+    del alone
+
+    # launches: one kv_restore per restored chunk, one paged_attention
+    # per layer and decode step, node by node
+    want_nodes = []
+    for k, eng in enumerate(fleet.engines):
+        mine = [r for r in done.values() if fleet.placement[r.rid] == k]
+        steps = len({t for r in mine for t in r.token_times[1:]})
+        want_nodes.append({
+            "kv_restore": sum(expected_restores(
+                cfg, cluster.catalog[r.prefix].manifest) for r in mine
+                if r.storage_hit in ("full", "local")),
+            "paged_attention": cfg.num_layers * steps})
+    want = {n: sum(w[n] for w in want_nodes) for n in launches}
+    log(f"[fleet] launches {launches}, expected {want}; per node "
+        f"{per_node}, expected {want_nodes}")
+    check(per_node == want_nodes and launches == want,
+          "fleet launch counts differ from the script's")
+    # paged_attention's launches by the shape of their decode step
+    shapes = {b: cfg.num_layers * batches.count(b) for b in set(batches)}
+    check(sum(shapes.values()) == launches["paged_attention"],
+          f"decode steps {batches} do not make "
+          f"{launches['paged_attention']} launches")
+
+    # the same script on the host: the analytic FleetSimulator over
+    # synthetic twins of the two prefixes
+    sim_cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
+                                 replication=1, heal="manual")
+    for key in (anc.key, man.prefix):
+        src = cluster.catalog[key]
+        sim_cluster.register(StoredPrefix(
+            key=key, n_tokens=src.n_tokens,
+            bytes_by_resolution={RESOLUTION: src.stored_bytes},
+            raw_kv_bytes=src.raw_kv_bytes, parent=src.parent), 0.0)
+    fair_s = FairScheduler(max_inflight=1)
+    spec = MethodSpec("kvfetcher", ratios={"stream": 8.0}, adaptive=False,
+                      fixed_resolution=RESOLUTION, uses_decode_pool=True,
+                      use_table_sizes=True, pipelined=False,
+                      layerwise_admission=False, resolutions=(RESOLUTION,))
+    t1 = time.perf_counter()
+    sim = FleetSimulator(cfg, spec, n_nodes=FLEET_NODES, bandwidth=trace,
+                         storage=sim_cluster, table=table, fairness=fair_s,
+                         policy="affinity", local_kv_tokens=PREFIX_TOKENS,
+                         churn_at_dispatch=churn, chunk_tokens=16,
+                         max_running=16)
+    res = sim.run([Request(rid=r.rid, arrival=0.0, prompt_len=r.prompt_len,
+                           reuse_tokens=r.reuse_tokens, prefix=r.prefix,
+                           max_new_tokens=r.max_new_tokens, user=r.user,
+                           slo_tier=r.slo_tier) for r in reqs],
+                  max_new_tokens=FLEET_NEW_TOKENS)
+    t_sim = time.perf_counter() - t1
+
+    def lookups(c):
+        return [e for e in c.events if e[0] in FLEET_LOOKUP_KINDS]
+
+    check(fleet.router.events == res.router_events
+          and fleet.placement == res.placements,
+          f"router: card {fleet.router.events} != host "
+          f"{res.router_events}")
+    check(fair.events == res.fairness_events,
+          f"fairness: card {fair.events} != host {res.fairness_events}")
+    check(lookups(cluster) == lookups(sim_cluster),
+          f"cluster: card {lookups(cluster)} != host "
+          f"{lookups(sim_cluster)}")
+    check(hits.count("local") == res.local_hits,
+          f"local hits: card {hits.count('local')}, host "
+          f"{res.local_hits}")
+    sim_ttft = {r.rid: r.ttft for r in res.requests}
+    for i, (user, _, name) in enumerate(script):
+        r = done[i]
+        what = {"local": "local restore", "miss": "lookup"}.get(
+            r.storage_hit, "fetch")
+        service = ("" if i not in dispatch_wall else
+                   f", its {what} {dispatch_wall[i]:.3f} s wall")
+        log(f"[fleet] rid {i} {user} {name or 'plain'} on "
+            f"s{fleet.placement[i]}: {r.storage_hit or 'no fetch'}"
+            f"{' from ' + r.storage_node if r.storage_node else ''}; "
+            f"modeled TTFT {r.ttft:.4f} s (host simulator "
+            f"{sim_ttft[i]:.4f} s); wall TTFT {wall_first[i]:.3f} s from "
+            f"the run's start{service}")
+    log(f"[fleet] dispatches per node {fleet.dispatches_by_node}; router "
+        f"{fleet.router.events}")
+    log(f"[fleet] cluster events {cluster.events}")
+    log(f"[fleet] {len(fair.events)} fairness events, "
+        f"{len(lookups(cluster))} cluster lookup events, "
+        f"{res.local_hits} local hits: equal to the host FleetSimulator's "
+        f"(run in {t_sim:.2f} s); tokens equal to phase 4's and the local "
+        f"hits' to the full hits', the miss's to a plain prefill's; pages "
+        f"of {len(restored)} restores bit-equal")
+    log(f"[fleet] paged_attention launches by decode step (contexts, "
+        f"block-table width): {sorted(shapes.items())}")
+    log(f"[fleet] {FLEET_NODES} nodes x {n_pages} pages; peak memory "
+        f"allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held "
+        f"when the phase started); phase wall {wall:.2f} s (page checks "
+        f"{t_check[0]:.2f} s not counted)")
+    del fleet
+    torch.cuda.empty_cache()
+    check(set(shapes) == set(FLEET_BATCHES),
+          f"the fleet's decode steps {sorted(shapes)} differ from "
+          f"FLEET_BATCHES {sorted(FLEET_BATCHES)}")
+    return launches, shapes
 
 
 # -- phase 6: agreement with the plain versions at a small size ---------------
@@ -1219,7 +1580,7 @@ def small_reference(dev) -> None:
                         resolutions=(RESOLUTION,))
     runs = []
     for d, p in (("cpu", params), (dev, dev_params)):
-        out, events, pf_events = storage_script(
+        out, events, pf_events, _ = storage_script(
             d, cfg, p, prefix, prompts[0], kv_k, kv_v, man, new_tokens=6,
             n_pages=N_PAGES, frames={})
         runs.append(dict(
@@ -1528,11 +1889,11 @@ def main() -> int:
           "the path's decode contexts differ from DECODE_CTX")
     rows = [kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"])]
     attn = {}
-    for case, arch, lens, seed in ATTN_CASES:
+    for case, arch, lens, width, seed in ATTN_CASES:
         c = get_config(arch)
         attn[case] = paged_attention_case(
-            dev, c.num_heads, c.num_kv_heads, c.head_dim, 16, lens, seed,
-            counts[f"paged_attention {case}"])
+            dev, c.num_heads, c.num_kv_heads, c.head_dim, PAGE_SIZE, lens,
+            width, seed, counts[f"paged_attention {case}"])
     td_rows, td_launches = token_delta_phase(dev, cfg, man)
     rows += td_rows
 
@@ -1542,13 +1903,22 @@ def main() -> int:
     launches.update(td_launches)
     virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
                  wall_outputs, frames)
-    stored = storage_path(dev, cfg, params, man, prefix, prompts, kv_k,
-                          kv_v, wall_outputs, frames)
-    # paged_attention runs at two shapes on lwm-7b's path: the batch of
-    # three in phase 4 and one request alone in phase 5b.  Its row takes
-    # the times of the shape with more launches; both are logged
+    stored, anc = storage_path(dev, cfg, params, man, prefix, prompts,
+                               kv_k, kv_v, wall_outputs, frames)
+    fleet, fleet_shapes = fleet_path(
+        dev, cfg, params, man, int(kv_k.nbytes + kv_v.nbytes), anc, prefix,
+        prompts, plain, wall_outputs, frames)
+    del anc
+    # paged_attention runs at many shapes on lwm-7b's path: the batch of
+    # three in phase 4, one request alone in phase 5b, and the fleet's
+    # decode steps in phase 5c.  Each is held, timed and counted on its
+    # own; the row's times are their means weighted by launches
     per_shape = {"lwm-7b": launches["paged_attention"],
                  "lwm-7b B=1": stored["paged_attention"]}
+    for case, _, lens, width, _ in ATTN_CASES:
+        if (tuple(lens), width) in fleet_shapes:
+            per_shape[case] = fleet_shapes[tuple(lens), width]
+    n_pa = sum(per_shape.values())
     for case, n in per_shape.items():
         a = attn[case]
         log(f"[kernel] paged_attention {case}: {n} launches on the path; "
@@ -1556,11 +1926,23 @@ def main() -> int:
             f"{a['bound_ms'] * 1e3:.3f} us, plain {a['plain_ms'] * 1e3:.2f}"
             f" us, SDPA {a['library_ms'] * 1e3:.2f} us; loss over the "
             f"bound {n * (a['ms'] - a['bound_ms']):.3f} ms per run")
-    rows.insert(1, dict(attn[max(per_shape, key=per_shape.get)],
-                     max_abs_err=max(attn[c]["max_abs_err"]
-                                     for c in per_shape)))
+    row = dict(attn["lwm-7b"], max_abs_err=max(
+        attn[c]["max_abs_err"] for c in per_shape),
+        bound_by=attn[max(per_shape, key=per_shape.get)]["bound_by"])
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        row[k] = sum(n * attn[c][k] for c, n in per_shape.items()) / n_pa
+    rows.insert(1, row)
+    fleet_loss = sum(n * (attn[c]["ms"] - attn[c]["bound_ms"])
+                     for c, n in per_shape.items() if c.startswith(
+                         "lwm-7b fleet"))
+    log(f"[kernel] paged_attention over the path's {n_pa} launches: mean "
+        f"{row['ms'] * 1e3:.2f} us/call, bound {row['bound_ms'] * 1e3:.3f} "
+        f"us; loss over the bound {n_pa * (row['ms'] - row['bound_ms']):.3f}"
+        f" ms per run, of it the fleet's {fleet_loss:.3f} ms")
     for name, n in stored.items():
-        launches[name] += n
+        launches[name] += n + fleet[name]
+    check(launches["paged_attention"] == n_pa,
+          "paged_attention's launches by shape do not add up")
     del params, store, man, kv_k, kv_v, frames
     torch.cuda.empty_cache()
     small_reference(dev)

@@ -1,8 +1,11 @@
-"""Serving launcher of the port: the live engine, on the card by default.
+"""Serving launcher of the port: the live engine, on the card by default,
+or the cluster simulation, on the host.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --live
     PYTHONPATH=src python -m repro_torch.launch.serve --live --reduced \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b \
+        --simulate --gbps 16 --context 100000 --method kvfetcher
 
 ``--live`` serves the scenario of the JAX package's
 ``examples/serve_reuse.py``: a donor registers an encoded prefix, a
@@ -12,7 +15,13 @@ paged memory and prefills only its suffixes beside one plain request
 one reuse request streams its tokens over a modeled WAN (virtual clock,
 ``fetch_mode="async"``) through ``on_token``.  ``--arch`` names the
 model (full width unless ``--reduced``), with random weights from seed
-0, as the scenario's prompts are.  The cluster simulation (``--simulate``) is not ported yet.
+0, as the scenario's prompts are.
+
+``--simulate`` runs the analytic ``ServingSimulator`` (numpy, no
+device) over ``--requests`` back-to-back fetches of ``--context``
+tokens on a constant ``--gbps`` link with ``--method``'s spec and
+``--chip``'s decode table, and prints the TTFT/TPOT summary of the
+fetching requests, as the JAX package's launcher does.
 """
 from __future__ import annotations
 
@@ -22,17 +31,19 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch.cluster import simulator as sim
 from repro_torch.cluster.network import BandwidthTrace
 from repro_torch.cluster.storage import KVStore
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adaptive import TABLES
 from repro_torch.core.chunks import prefix_key
-from repro_torch.data.workload import shared_prefix_tokens
+from repro_torch.data.workload import fixed_context_trace, shared_prefix_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.params import init_params
 from repro_torch.serving import paged_model
 from repro_torch.serving.engine import LiveEngine
-from repro_torch.serving.metrics import split_summary
+from repro_torch.serving.metrics import split_summary, summarize
 
 PREFIX_LEN, SUFFIX_LEN, N_REQ, NEW_TOKENS = 96, 8, 3, 4
 TOKENS_PER_CHUNK = 32
@@ -131,6 +142,32 @@ def live_scenario(params, cfg: ModelConfig, *, device: DeviceLike = None,
                 stream_times=list(sreq.token_times), summary=summary)
 
 
+def simulate(args: argparse.Namespace) -> None:
+    """The ``--simulate`` branch: one ``ServingSimulator`` run, its
+    summary printed."""
+    spec = {
+        "kvfetcher": sim.kvfetcher_spec(
+            {"240p": 9.0, "480p": 8.5, "640p": 8.0, "1080p": 7.0}),
+        "cachegen": sim.cachegen_spec(3.5),
+        "llm265": sim.llm265_spec(5.0),
+        "raw": sim.raw_spec(),
+        "lmcache_raw": sim.lmcache_raw_spec(),
+        "full_prefill": sim.full_prefill_spec(),
+    }[args.method]
+    # the cost model has no TPU entry: tpu-v5e runs on h20's figures
+    chip = "h20" if args.chip == "tpu-v5e" else args.chip
+    s = sim.ServingSimulator(
+        get_config(args.arch), spec, chip=chip, n_chips=2,
+        bandwidth=BandwidthTrace.constant(args.gbps), table=TABLES[chip])
+    res = s.run(fixed_context_trace(args.context,
+                                    n_requests=args.requests, gap=60.0),
+                max_new_tokens=16)
+    reqs = res.fetching() or res.requests
+    print(f"method={args.method} ctx={args.context} bw={args.gbps}Gbps")
+    for k, v in summarize(reqs).items():
+        print(f"  {k}: {v:.3f}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="lwm-7b")
@@ -138,14 +175,20 @@ def main(argv=None) -> None:
                     help="serve the reduced (smoke-size) configuration")
     ap.add_argument("--live", action="store_true")
     ap.add_argument("--simulate", action="store_true")
+    ap.add_argument("--method", default="kvfetcher",
+                    choices=["kvfetcher", "cachegen", "llm265", "raw",
+                             "lmcache_raw", "full_prefill"])
+    ap.add_argument("--gbps", type=float, default=16.0)
+    ap.add_argument("--context", type=int, default=100_000)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--chip", default="h20",
+                    choices=["h20", "a100", "l20", "tpu-v5e"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.simulate:
-        raise NotImplementedError(
-            "--simulate is not ported yet: the cluster simulator "
-            "(ServingSimulator) arrives with the simulator slice of the "
-            "port")
+    if args.simulate and not args.live:
+        simulate(args)
+        return
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -39,12 +39,17 @@ predicted prefixes in host memory and resolves demand fetches
 host-first; ``fairness=`` (a `repro_torch.cluster.fairness.
 FairScheduler`) orders fetch dispatch by per-user virtual counters.
 
+``external_dispatch=True`` hands fetch dispatch to a fleet
+(`repro_torch.cluster.fleet.LiveFleet`): ``step()`` no longer takes
+fetches itself, and the fleet calls ``dispatch_fetch`` for a fetch over
+the storage tier or ``local_restore`` for a prefix the serving node
+already holds.
+
 The constructor takes every knob of the JAX engine so the two stay
-interchangeable; the knobs of the fleet (``external_dispatch``) and of
-mesh sharding (``mesh``, ``mesh_shards``) raise ``NotImplementedError``
-naming the slice of the port that brings them, rather than being
-ignored.  Where the JAX engine asserts, this one raises ``ValueError``
-with the same message.
+interchangeable; the knobs of mesh sharding (``mesh``, ``mesh_shards``)
+raise ``NotImplementedError`` naming the slice of the port that brings
+them, rather than being ignored.  Where the JAX engine asserts, this one
+raises ``ValueError`` with the same message.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ from repro_torch.cluster.network import LossModel, make_link
 from repro_torch.cluster.storage import KVStore, StorageCluster
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adaptive import DecodeTable
+from repro_torch.core.chunks import KVManifest
 from repro_torch.core.codec import KVCodec
 from repro_torch.core.fetch import FetchPlan, PlannedChunk, build_plan
 from repro_torch.core.fetch_controller import (ActiveFetch, FetchController,
@@ -146,7 +152,6 @@ class LiveEngine:
                  mesh=None, mesh_shards: Optional[int] = None,
                  device: DeviceLike = None):
         later = {
-            "external_dispatch": (external_dispatch, "the fleet slice"),
             "mesh": (mesh is not None, "the sharding slice"),
             "mesh_shards": (mesh_shards is not None, "the sharding slice"),
         }
@@ -199,6 +204,7 @@ class LiveEngine:
                                             fairness=fairness)
         self.resolution = resolution
         self.fetch_mode = fetch_mode
+        self.external_dispatch = external_dispatch
         self.stats = EngineStats()
         self.prompts: Dict[int, np.ndarray] = {}
         self.outputs: Dict[int, List[int]] = {}
@@ -294,6 +300,44 @@ class LiveEngine:
         return req
 
     # -- fetch dispatch -------------------------------------------------------
+    def dispatch_fetch(self, req: Request) -> None:
+        """External-dispatch entry point: a fleet drained the shared
+        fair backlog and placed ``req`` here; start its fetch and run
+        admission again, as ``step()`` does when it owns dispatch."""
+        self._start_fetch(req)
+        self.sched.schedule(self.now())
+
+    def local_restore(self, req: Request) -> None:
+        """Serve ``req`` from this serving node's own resident KV: a
+        real restore from the cataloged manifest (one ``kv_restore``
+        launch per chunk) at zero virtual network time, since the bytes
+        never cross the wire.  Fairness sees the same 0-byte "fetched"
+        event the simulator logs for a local hit."""
+        if not isinstance(self.store, StorageCluster) or not req.prefix:
+            raise ValueError("local_restore needs a multi-node "
+                             "StorageCluster store and a prefix key")
+        entry = self.store.catalog[req.prefix]
+        self._run_fetch_wall(req, self._prepare_restore(req,
+                                                        entry.manifest))
+        # every chunk is restored: the scales are not read again
+        self._fetch_scales.pop(req.rid, None)
+
+    def _prepare_restore(self, req: Request,
+                         man: KVManifest) -> FetchPlan:
+        """The plan of restoring ``man`` for ``req``, with what its
+        chunks' restores read: the sequence's rows, the staging buffer
+        sized to the largest chunk, and each kind's scales on the
+        device."""
+        plan = build_plan(req.rid, man)
+        self.cache.add_seq(req.rid, req.prompt_len + req.max_new_tokens)
+        self.cache.reserve_staging(
+            max(len(r.layers) for r in man.refs),
+            max(r.token_end - r.token_start for r in man.refs))
+        # each kind's [L, K] scales reach the device once per fetch
+        self._fetch_scales[req.rid] = {
+            kind: self._upload(sc) for kind, sc in man.scales.items()}
+        return plan
+
     def _start_fetch(self, req: Request) -> None:
         """Resolve the request's prefix against the store and start its
         fetch: at once on the wall clock, else through the controller.
@@ -342,14 +386,7 @@ class LiveEngine:
             man = self.store.lookup(req.prefix)
         if man is None:
             raise KeyError(f"prefix {req.prefix} not registered")
-        plan = build_plan(req.rid, man)
-        self.cache.add_seq(req.rid, req.prompt_len + req.max_new_tokens)
-        self.cache.reserve_staging(
-            max(len(r.layers) for r in man.refs),
-            max(r.token_end - r.token_start for r in man.refs))
-        # each kind's [L, K] scales reach the device once per fetch
-        self._fetch_scales[req.rid] = {
-            kind: self._upload(sc) for kind, sc in man.scales.items()}
+        plan = self._prepare_restore(req, man)
         if self.ctrl is None:
             self._run_fetch_wall(req, plan)
             return
@@ -512,9 +549,10 @@ class LiveEngine:
         if self.ctrl is not None:
             self.ctrl.pump(self.now())
         self.sched.schedule(self.now())
-        for req in self.sched.take_fetches():
-            self._start_fetch(req)
-            self.sched.schedule(self.now())
+        if not self.external_dispatch:
+            for req in self.sched.take_fetches():
+                self._start_fetch(req)
+                self.sched.schedule(self.now())
         if self.prefetch is not None:
             # sglang-style tick: launch speculation for heated prefixes
             # (deferred while demand fetches hold the source link)

@@ -579,3 +579,85 @@ def test_virtual_clock_engine_on_the_card_matches_the_cpu(cuda):
         logs.append((eng.outputs[r.rid], r.token_times,
                      eng.stats.restored_tokens))
     assert logs[0] == logs[1]
+
+
+def _fleet_run(dev, params, cfg, prefixes, suffix, kvs):
+    """A reduced LiveFleet of 4 engines behind the affinity router, one
+    FairScheduler and a two-node cluster whose first prefix's node fails
+    after the first dispatch: fetched full hits, local restores of the
+    hot prefix, and one miss.  Returns what must agree across devices
+    and the kv_restore launches against the chunks restored."""
+    from repro_torch.cluster.costmodel import CHIPS, EngineCostModel
+    from repro_torch.cluster.fairness import FairScheduler
+    from repro_torch.cluster.fleet import LiveFleet
+    from repro_torch.cluster.storage import StorageCluster, StorageNode
+    from repro_torch.core.adaptive import DecodeTable
+    cluster = StorageCluster([StorageNode("n0"), StorageNode("n1")],
+                             replication=1, heal="manual")
+    keys = [cluster.register_prefix(p, *kv, tokens_per_chunk=16,
+                                    resolutions=("240p",)).key
+            for p, kv in zip(prefixes, kvs)]
+    doomed = cluster.primary_node(keys[0]).node_id
+    fair = FairScheduler(max_inflight=1)
+    fleet = LiveFleet(
+        params, cfg, cluster, n_nodes=4,
+        bandwidth=BandwidthTrace.constant(0.0006), fairness=fair,
+        local_kv_tokens=128, churn_at_dispatch=[(1, "fail", doomed)],
+        engine_kw=dict(n_pages=32, max_running=8, resolution="240p",
+                       decode_table=DecodeTable(
+                           name="fleet-toy", n_decoders=1,
+                           latency={"240p": (0.06,)},
+                           penalty={"240p": 0.0},
+                           chunk_size_mb={"240p": 0.002}),
+                       use_table_sizes=True, adaptive=False,
+                       resolutions=("240p",),
+                       cost=EngineCostModel(cfg, CHIPS["h20"], 2)),
+        device=dev)
+    # the doomed node's other prefix is asked once, last: it misses
+    other = next(i for i, k in enumerate(keys[1:], 1)
+                 if cluster.primary_node(k).node_id == doomed)
+    script = [("alice", "premium", 0), ("bob", "free", 0),
+              ("alice", "premium", 3 - other), ("bob", "free", 0),
+              ("alice", "premium", 0), ("bob", "free", other)]
+    for user, tier, i in script:
+        fleet.submit(np.concatenate([prefixes[i], suffix]),
+                     prefix_key=keys[i], reuse_tokens=len(prefixes[i]),
+                     max_new_tokens=3, user=user, slo_tier=tier)
+    before = kv_ops.launches
+    fleet.run()
+    done = [r for e in fleet.engines for r in e.finished]
+    assert len(done) == len(script)
+    chunks = sum(len(cluster.catalog[r.prefix].manifest.refs) for r in done
+                 if r.storage_hit in ("full", "local"))
+    hits = {r.rid: r.storage_hit for r in done}
+    assert "local" in hits.values() and "miss" in hits.values()
+    return (dict(outputs={r.rid: fleet.engines[fleet.placement[r.rid]]
+                          .outputs[r.rid] for r in done},
+                 hits=hits, router=list(fleet.router.events),
+                 fairness=list(fair.events), cluster=list(cluster.events),
+                 times={r.rid: list(r.token_times) for r in done}),
+            kv_ops.launches - before, chunks)
+
+
+def test_live_fleet_on_the_card_matches_the_cpu(cuda):
+    """A reduced LiveFleet (4 engines, one copy of the weights) on the
+    card gives the tokens, token times and router, fairness and cluster
+    events of the same fleet on the CPU; on the card every fetched and
+    every locally restored chunk is one kv_restore launch."""
+    cfg = reduce_config(get_config("lwm-7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    gpu_params["layers"] = [
+        {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(cuda)) for k, v in lp.items()}
+        for lp in params["layers"]]
+    rng = np.random.default_rng(4)
+    prefixes = [rng.integers(0, cfg.vocab_size, n) for n in (48, 32, 32)]
+    suffix = rng.integers(0, cfg.vocab_size, 8)
+    kvs = [paged_model.donor_prefix_kv(params, cfg, p) for p in prefixes]
+    cpu_log, cpu_launches, _ = _fleet_run("cpu", params, cfg, prefixes,
+                                          suffix, kvs)
+    card_log, card_launches, chunks = _fleet_run(cuda, gpu_params, cfg,
+                                                 prefixes, suffix, kvs)
+    assert cpu_launches == 0 and card_launches == chunks > 0
+    assert card_log == cpu_log

@@ -107,13 +107,119 @@ def test_engine_mixed_batch_matches_jax(tiny_cfg, tiny_params, torch_params,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mesh", object()), ("mesh_shards", 2), ("external_dispatch", True),
+    ("mesh", object()), ("mesh_shards", 2),
 ])
 def test_engine_refuses_knobs_of_later_slices(knob, value, tiny_cfg,
                                               torch_params):
     with pytest.raises(NotImplementedError, match=knob):
         LiveEngine(torch_params, tiny_cfg, KVStore(), device="cpu",
                    **{knob: value})
+
+
+def test_external_dispatch_matches_jax(tiny_cfg, tiny_params, torch_params,
+                                       monkeypatch):
+    """``external_dispatch=True``: ``step()`` takes no fetch itself; the
+    caller drains the fair backlog and hands each fetch to
+    ``dispatch_fetch``, or to ``local_restore`` for a prefix it has
+    already fetched (a real restore at zero virtual network time, one
+    ``kv_restore_layers`` call per chunk).  The port's engine and the
+    JAX engine, driven the same way, give equal tokens, token times,
+    hit kinds and fairness and cluster events."""
+    import repro.cluster.costmodel as j_cost
+    import repro.cluster.fairness as j_fair
+    import repro.cluster.network as j_net
+    import repro.cluster.storage as j_storage
+    import repro.core.adaptive as j_adaptive
+    import repro_torch.cluster.costmodel as t_cost
+    import repro_torch.cluster.fairness as t_fair
+    import repro_torch.cluster.network as t_net
+    import repro_torch.cluster.storage as t_storage
+    import repro_torch.core.adaptive as t_adaptive
+    import repro_torch.paged.cache as cache_mod
+
+    restores = []
+    real = cache_mod.kv_restore_layers
+    monkeypatch.setattr(cache_mod, "kv_restore_layers",
+                        lambda *a, **kw: restores.append(1) or real(*a,
+                                                                    **kw))
+    rng = np.random.default_rng(21)
+    prefixes = [rng.integers(0, tiny_cfg.vocab_size, n) for n in (48, 32)]
+    suffix = rng.integers(0, tiny_cfg.vocab_size, 8)
+    kvs = [paged_model.donor_prefix_kv(torch_params, tiny_cfg, p)
+           for p in prefixes]
+    # (user, tier, prefix index): the third ask repeats the first prefix
+    script = [("bob", "free", 0), ("alice", "premium", 1),
+              ("bob", "free", 0), ("alice", "premium", 0)]
+    runs = []
+    for (engine_cls, params, kw, storage, fair, net, adaptive, cost) in (
+            (JaxLiveEngine, tiny_params, {}, j_storage, j_fair, j_net,
+             j_adaptive, j_cost),
+            (LiveEngine, torch_params, {"device": "cpu"}, t_storage, t_fair,
+             t_net, t_adaptive, t_cost)):
+        cluster = storage.StorageCluster(
+            [storage.StorageNode("n0"), storage.StorageNode("n1")],
+            replication=1, heal="manual")
+        keys = [cluster.register_prefix(p, k, v, **STORE_KW).key
+                for p, (k, v) in zip(prefixes, kvs)]
+        fairness = fair.FairScheduler(max_inflight=1)
+        eng = engine_cls(
+            params, tiny_cfg, cluster, policy="kvfetcher", max_running=8,
+            fetch_mode="sync", bandwidth=net.BandwidthTrace.constant(0.0006),
+            decode_table=adaptive.DecodeTable(
+                name="dispatch-toy", n_decoders=1,
+                latency={"240p": (0.06,)}, penalty={"240p": 0.0},
+                chunk_size_mb={"240p": 0.002}),
+            use_table_sizes=True, adaptive=False, resolution="240p",
+            resolutions=("240p",),
+            cost=cost.EngineCostModel(tiny_cfg, cost.CHIPS["h20"], 2),
+            fairness=fairness, external_dispatch=True, **kw)
+        reqs = [eng.submit(np.concatenate([prefixes[i], suffix]),
+                           reuse_prefix=keys[i],
+                           reuse_tokens=len(prefixes[i]), max_new_tokens=3,
+                           user=user, slo_tier=tier, rid=10 + 7 * n)
+                for n, (user, tier, i) in enumerate(script)]
+        eng.step()
+        assert all(r.fetch_started is None for r in reqs), \
+            "step() dispatched a fetch itself"
+        fetched, local, n_restores = set(), [], {}
+        for _ in range(1000):
+            work = eng.step()
+            ready = fairness.take()
+            for req in ready:
+                before = len(restores)
+                if req.prefix in fetched:
+                    req.storage_hit = "local"
+                    eng.local_restore(req)
+                    eng.sched.schedule(eng.now())
+                    local.append(req.rid)
+                else:
+                    eng.dispatch_fetch(req)
+                    fetched.add(req.prefix)
+                n_restores[req.rid] = len(restores) - before
+            if not work and not ready:
+                break
+        assert len(eng.finished) == len(reqs)
+        runs.append(dict(
+            tokens={r.rid: eng.outputs[r.rid] for r in reqs},
+            times={r.rid: list(r.token_times) for r in reqs},
+            fetch={r.rid: (r.fetch_started, r.fetch_done) for r in reqs},
+            hits={r.rid: (r.storage_hit, r.storage_node) for r in reqs},
+            local=local, fairness=list(fairness.events),
+            cluster=list(cluster.events)))
+        if engine_cls is LiveEngine:
+            chunks = {k: len(cluster.catalog[k].manifest.refs) for k in keys}
+            assert {r.rid: n_restores[r.rid] for r in reqs} == \
+                {r.rid: chunks[r.prefix] for r in reqs}
+            assert not eng._fetch_scales, "the scales were not freed"
+    jax_run, port_run = runs
+    for what in jax_run:
+        assert port_run[what] == jax_run[what], what
+    assert sorted(port_run["local"]) == [24, 31]
+    # a local restore takes no virtual network time
+    for rid in port_run["local"]:
+        assert port_run["fetch"][rid][0] == port_run["fetch"][rid][1]
+    assert {k for _, _, k, _ in port_run["fairness"]} >= \
+        {"arrive", "dispatch", "fetched", "serve"}
 
 
 RES = ("240p", "480p", "640p", "1080p")

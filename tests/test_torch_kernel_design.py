@@ -34,11 +34,18 @@ from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
 
 # (B, H, K, table width in pages, contexts, page size): chip_smoke.py's
 # decode batch at lwm-7b's and yi-34b's heads, its storage phase's one
-# request alone, and small shapes
+# request alone (in tables 36 and 34 pages wide: the cache's own width is
+# 34), its fleet phase's decode steps, and small shapes
 PLAN_CASES = [
     (3, 32, 32, 36, [543, 543, 543], 16),
     (1, 32, 32, 36, [543], 16),
     (3, 56, 8, 36, [543, 543, 543], 16),
+    (3, 32, 32, 34, [543, 543, 543], 16),
+    (1, 32, 32, 34, [543], 16),
+    (1, 32, 32, 18, [273], 16),
+    (2, 32, 32, 18, [273, 274], 16),
+    (2, 32, 32, 34, [274, 529], 16),
+    (2, 32, 32, 34, [529, 530], 16),
     (2, 8, 2, 8, [60, 1], 8),
     (4, 4, 1, 5, [33, 17, 9, 1], 8),
     (1, 64, 8, 250, [4000], 16),
@@ -67,6 +74,11 @@ def test_split_plan_fills_the_card_at_the_path_shapes():
     assert pa_ops.plan_splits(3, 32, 32, 36, n_sm=132) == 3
     assert pa_ops.plan_splits(1, 32, 32, 36, n_sm=132) == 9
     assert pa_ops.plan_splits(3, 56, 8, 36, n_sm=132) == 11
+    # the cache's own 34-page tables split alike; the fleet's steps
+    assert pa_ops.plan_splits(3, 32, 32, 34, n_sm=132) == 3
+    assert pa_ops.plan_splits(1, 32, 32, 34, n_sm=132) == 9
+    assert pa_ops.plan_splits(1, 32, 32, 18, n_sm=132) == 9
+    assert pa_ops.plan_splits(2, 32, 32, 34, n_sm=132) == 5
     assert pa_ops.plan_splits(12, 32, 32, 19, n_sm=132) == 1
     assert pa_ops.plan_splits(1, 8, 2, 2, n_sm=132) == 1  # one page pair
     assert split_range(34, 3, 2) == (24, 34)
@@ -82,6 +94,9 @@ SPLIT_CASES = [
     (4, 4, 16, 4, [7, 30, 2, 16], 9),
     (16, 2, 16, 8, [64, 5], 2),
     (4, 1, 8, 16, [100], 1),
+    # the fleet's unequal pair: the shorter sequence leaves its last
+    # splits empty
+    (8, 2, 32, 16, [274, 529], 5),
 ]
 
 

@@ -1,7 +1,8 @@
 """The port's serve entry point on the CPU: ``repro_torch.launch.serve``'s
 live scenario (the scenario of examples/serve_reuse.py) on weights
 bridged from the JAX init, held against the JAX ``LiveEngine`` serving
-the same prompts from the same donor KV; and the command line."""
+the same prompts from the same donor KV; and the command line, whose
+``--simulate`` prints what the JAX launcher prints."""
 import jax
 import numpy as np
 import pytest
@@ -57,9 +58,32 @@ def test_live_scenario_matches_jax_engine(tiny_cfg, tiny_params):
     assert got["stream_times"] == s.token_times
 
 
-def test_command_line(capsys):
-    with pytest.raises(NotImplementedError, match="simulator slice"):
-        serve.main(["--simulate"])
+#: (method, chip) of each --simulate case: every method, every chip
+SIMULATE_CASES = [("kvfetcher", "h20"), ("cachegen", "a100"),
+                  ("llm265", "l20"), ("raw", "tpu-v5e"),
+                  ("lmcache_raw", "h20"), ("full_prefill", "a100")]
+
+
+@pytest.mark.parametrize("method,chip", SIMULATE_CASES)
+def test_command_line(method, chip, capsys, monkeypatch):
+    """``--simulate`` prints what the JAX launcher prints for the same
+    arguments."""
+    from repro.launch import serve as jax_serve
+
+    argv = ["--simulate", "--method", method, "--arch", "yi-34b",
+            "--gbps", "8", "--context", "60000", "--requests", "3",
+            "--chip", chip]
+    serve.main(argv)
+    got = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["serve.py"] + argv)
+    jax_serve.main()
+    want = capsys.readouterr().out
+    assert got == want
+    assert got.startswith(f"method={method} ctx=60000 bw=8.0Gbps")
+    assert "ttft_mean" in got
+
+
+def test_command_line_live(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--live", "--reduced"])
