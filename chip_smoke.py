@@ -27,10 +27,10 @@ JAX or of the JAX package.  Phases:
    5b's one request alone, at each decode step shape of phase 5c's fleet
    (``FLEET_BATCHES``) and at yi-34b's GQA head shape, each in block
    tables as wide as the cache's, with the number of page-axis splits
-   and phase 1's kernels per call); times beside the bound
-   (``paged_attention``'s row in the kernel table holds the means over
-   lwm-7b's shapes weighted by their launches on the path; each shape
-   is logged with its launches and loss);
+   and phase 1's kernels per call); times beside the bound (each
+   kernel's row in the kernel table holds the means over the shapes of
+   lwm-7b's and deepseek-moe-16b's paths weighted by their launches on
+   the path; each shape is logged with its launches and loss);
    then the token-delta ops on the codec's real 240p planes of the
    prefix (``pack_frames`` of a fetched chunk and of layer group 0's
    whole prefix, 40 x 128 x 416): counts set to 0, one encode and one
@@ -119,7 +119,40 @@ JAX or of the JAX package.  Phases:
    logits must match the plain version's on the card within 2e-4 of the
    largest logit; the reuse-versus-exact-cache logit error is reported;
 10. reference: the same snapshot path at a reduced size on the card
-   (kernel) and on the CPU (plain version) must generate the same tokens.
+   (kernel) and on the CPU (plain version) must generate the same tokens;
+11. MoE set-up: mamba2-2.7b's weights are freed, then deepseek-moe-16b at
+   full width (28 layers, d 2048, 16 heads (MHA) of dim 128, a dense
+   first layer of ff 10944, 27 MoE layers of 64 routed experts of ff 1408
+   with 2 shared experts and top-6 routing, vocab 102400) with random
+   fp32 weights from a seeded ``torch.Generator``, exactly 16,375,728,128
+   parameters; a donor prefills phase 2's 512-token prefix and registers
+   it, encoded, in a ``KVStore`` (28 layers: 9 groups of 3 and a group of
+   one);
+12. kernels at deepseek-moe-16b's shapes: ``kv_restore_layers`` bit-equal
+   on the path's chunk of a 3-layer group and of the one-layer remainder
+   group (16 tokens, H 16, D 128), and ``paged_attention`` within 1e-4
+   at the batch of three (context 543, H = K = 16, hd 128); each timed
+   beside its bound (``paged_attention`` also beside SDPA) and counted in
+   the ``--kernel-counts`` child;
+13. the MoE path: phase 4's requests (two that fetch the prefix, one
+   plain; 16-token suffixes, 16 new tokens) through deepseek-moe-16b's
+   ``LiveEngine``, the counts set to 0 just before and read just after
+   (``kv_restore`` one launch per fetched chunk, ``paged_attention`` 28
+   per decode step); the restored pages bit-equal to the codec's
+   dequantized frames; the plain request's first-token logits within
+   2e-4 of the largest |logit| of ``transformer.prefill`` of the same
+   prompt on the card (both route its 528 tokens as one group); the
+   TTFTs, fetch times, median decode step, peak memory and whether reuse
+   equals a full prefill (logged, not asserted: the suffix's MoE group of
+   16 has capacity 1 per expert) are logged;
+14. reference: the reduced deepseek-moe-16b engine (4 layers: a dense
+   first layer, groups of 3 and 1) generates the same tokens on the card
+   and on the CPU; each of the ten ``ASSIGNED_ARCHS``, reduced, with
+   weights drawn on the CPU: ``forward_full`` on the card against the
+   CPU (logits within 2e-4 of the largest, aux within 1e-5) and, for the
+   decoders, ``prefill`` of a 72-token prompt (past the reduced 64-token
+   windows) and 4 ``decode_step``; an argmax or a top-k routing choice
+   that differs is logged with its margin.
 
 TF32 is switched off for matrix products and convolutions, so every fp32
 product runs in full fp32.  Any failed check raises and the script exits
@@ -155,7 +188,8 @@ from repro_torch.cluster.staging import (  # noqa: E402
     HostStagingTier, PrefetchManager)
 from repro_torch.cluster.storage import (  # noqa: E402
     KVStore, StorageCluster, StorageNode, StoredPrefix)
-from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ASSIGNED_ARCHS, get_config, reduce_config)
 from repro_torch.core.chunks import (  # noqa: E402
     decode_chunk_tokens, decode_state_snapshot, encode_prefix,
     encode_state_snapshot, prefix_key)
@@ -179,6 +213,7 @@ from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_decode_frame_ref, token_delta_decode_frames_ref,
     token_delta_encode_ref)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -256,11 +291,17 @@ FLEET_BATCHES = (decode_batch((FLEET_A, 1)),
                  decode_batch((FLEET_P, 1)),
                  decode_batch((FLEET_P, 1), (FLEET_P, 2)),
                  decode_batch((FLEET_P, 2)))
+# the MoE path of phases 11-13: deepseek-moe-16b at full width, and its
+# parameter count (the JAX init's tree, counted by jax.eval_shape)
+DS_ARCH = "deepseek-moe-16b"
+DS_PARAMS = 16_375_728_128
 # paged_attention's cases, held, timed and counted at the paths' shapes:
-# (case, config, decode contexts, block-table width, seed)
+# (case, config, decode contexts, block-table width, seed); deepseek's
+# batch of three is held in phase 12
 ATTN_CASES = ((("lwm-7b", "lwm-7b", DECODE_CTX, DECODE_WIDTH, 2),
                ("lwm-7b B=1", "lwm-7b", STORAGE_CTX, DECODE_WIDTH, 4),
-               ("yi-34b", "yi-34b", DECODE_CTX, DECODE_WIDTH, 3))
+               ("yi-34b", "yi-34b", DECODE_CTX, DECODE_WIDTH, 3),
+               (DS_ARCH, DS_ARCH, DECODE_CTX, DECODE_WIDTH, 20))
               + tuple((f"lwm-7b fleet ctx {list(lens)} w {width}", "lwm-7b",
                        list(lens), width, 7 + i)
                       for i, (lens, width) in enumerate(FLEET_BATCHES)))
@@ -334,20 +375,25 @@ def count_kernels_child() -> int:
     the host inside each range and how many of them have a kernel record
     on the device, and the page-axis splits of ``paged_attention``."""
     dev = torch.device("cuda", 0)
-    lwm, yi, mamba = (get_config(n) for n in ("lwm-7b", "yi-34b",
-                                               "mamba2-2.7b"))
+    mamba = get_config("mamba2-2.7b")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    H, D = lwm.num_kv_heads, lwm.head_dim
-    pages = torch.zeros(lwm.num_layers, N_PAGES * 16, H, D, device=dev)
-    q = torch.randint(0, 256, (3, TOKENS_PER_CHUNK, H, D), device=dev,
-                      generator=g, dtype=torch.uint8)
-    scales = torch.rand(3, H, device=dev, generator=g)
     slots = torch.arange(TOKENS_PER_CHUNK, dtype=torch.int32, device=dev)
-    calls = {"kv_restore_layers": lambda: kv_ops.kv_restore_layers(
-        pages, (0, 1, 2), q, scales, slots)}
-    splits = {}
+    calls, splits = {}, {}
+    # a chunk of lwm-7b's 3-layer groups, and deepseek-moe-16b's chunks of
+    # a 3-layer group and of its 1-layer remainder group
+    for name, arch, G in (("kv_restore_layers", "lwm-7b", 3),
+                          (f"kv_restore_layers {DS_ARCH} G=3", DS_ARCH, 3),
+                          (f"kv_restore_layers {DS_ARCH} G=1", DS_ARCH, 1)):
+        cfg = get_config(arch)
+        H, D = cfg.num_kv_heads, cfg.head_dim
+        pages = torch.zeros(cfg.num_layers, N_PAGES * 16, H, D, device=dev)
+        q = torch.randint(0, 256, (G, TOKENS_PER_CHUNK, H, D), device=dev,
+                          generator=g, dtype=torch.uint8)
+        scales = torch.rand(G, H, device=dev, generator=g)
+        calls[name] = (lambda a=(pages, tuple(range(G)), q, scales, slots):
+                       kv_ops.kv_restore_layers(*a))
     for case, arch, lens, width, seed in ATTN_CASES:
-        cfg = lwm if arch == lwm.name else yi
+        cfg = get_config(arch)
         args = attention_inputs(dev, cfg.num_heads, cfg.num_kv_heads,
                                 cfg.head_dim, PAGE_SIZE, lens, width, seed)
         name = f"paged_attention {case}"
@@ -413,10 +459,10 @@ def kernel_counts() -> dict:
         # then the scan, the token-delta ops one kernel per stack,
         # paged_attention its split kernel and, when it splits the pages,
         # the merge
-        want = {"kv_restore_layers": 1, "ssd_scan": 2,
-                "token_delta_encode": 1,
+        want = {"ssd_scan": 2, "token_delta_encode": 1,
                 "token_delta_decode_frames": 1}.get(
-            name, 1 if c["splits"] == 1 else 2)
+            name, 1 if name.startswith("kv_restore") or c["splits"] == 1
+            else 2)
         log(f"[profile] {name}: {c['kernels']} CUDA kernels per op call "
             f"with a device record, {c['launches']} launches on the host"
             + (f"; {c['splits']} splits" if c["splits"] else ""))
@@ -436,14 +482,15 @@ def n_params(params) -> int:
     return params.numel()
 
 
-def set_up(dev):
-    cfg = get_config("lwm-7b")
+def set_up(dev, arch: str = "lwm-7b", tag: str = "setup"):
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          device=dev)
     torch.cuda.synchronize()
-    log(f"[setup] lwm-7b full width, {n_params(params) / 1e9:.3f} B fp32 "
-        f"params, init {time.perf_counter() - t0:.2f} s")
+    log(f"[{tag}] {arch} full width, {n_params(params)} fp32 params "
+        f"({n_params(params) * 4 / 2**30:.2f} GiB), init "
+        f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED)
     prefix, prompts = shared_prefix_tokens(rng, cfg.vocab_size, PREFIX_TOKENS,
                                            2, SUFFIX_TOKENS)
@@ -462,7 +509,7 @@ def set_up(dev):
     man = store.register_prefix(prefix, kv_k, kv_v,
                                 tokens_per_chunk=TOKENS_PER_CHUNK,
                                 resolutions=(RESOLUTION,))
-    log(f"[setup] donor prefill {PREFIX_TOKENS} tokens {t_prefill:.2f} s; "
+    log(f"[{tag}] donor prefill {PREFIX_TOKENS} tokens {t_prefill:.2f} s; "
         f"host encode {time.perf_counter() - t0:.2f} s, "
         f"{store.stored_bytes()} bytes in {len(man.refs)} chunks, "
         f"layout {man.layout}")
@@ -484,12 +531,16 @@ def chunk_tokens(cfg, man, ref):
             np.ascontiguousarray(q.swapaxes(0, 1)), len(frames[0][0]))
 
 
-def kv_restore_phase(dev, cfg, man, n_kernels: int):
+def kv_restore_phase(dev, cfg, man, n_kernels: int, frame_timing: bool):
+    """``kv_restore_layers`` against its plain version on the card at
+    ``cfg``'s path, each chunk shape timed beside its bound.  Returns the
+    kernel row, with ``by_group``: per group size G (layers in a chunk's
+    group), the row's times at the path's chunk of that size."""
     H, D, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
     R = N_PAGES * 16
     g = torch.Generator(device=dev).manual_seed(1)
     pages = torch.randn(L, R, H, D, device=dev, generator=g)
-    # the path's first chunk (a 3-layer group) and a chunk of the 2-layer
+    # the path's first chunk (a 3-layer group) and a chunk of the
     # remainder group, with distinct rows >= 1, so row 0 below is unique
     cases, frame_len = [], 0
     for ref in (man.refs[0], next(r for r in man.refs if len(r.layers) < 3)):
@@ -516,53 +567,72 @@ def kv_restore_phase(dev, cfg, man, n_kernels: int):
                                        scales_c, sl)
         torch.cuda.synchronize()
         check(torch.equal(got, want),
-              f"kv_restore_layers kernel != plain version ({what})")
+              f"{cfg.name}: kv_restore_layers kernel != plain version "
+              f"({what})")
         err = max(err, (got - want).abs().max().item())
-    G, n = q.shape[:2]
+    by_group = {}
+    for what, layers_c, q_c, scales_c, rows_c in cases[:2]:
+        G, n = q_c.shape[:2]
 
-    def call():
-        kv_ops.kv_restore_layers(pages, layers, q, scales, rows)
-    ms = graph_ms(call)
-    eager_ms = time_ms(call)
-    # the plain version's boolean-mask scatter synchronises with the host,
-    # so it cannot be captured: its time includes that round trip
-    plain_ms = time_ms(lambda: kv_restore_layers_ref(pages, layers, q,
-                                                     scales, rows))
-    n_bytes = G * n * H * D * (1 + 4) + G * H * 4 + n * 4
-    b_ms, b_by = bound(n_bytes, 2 * G * n * H * D)
-    log(f"[kernel] kv_restore_layers G={G} n={n} H={H} D={D} (one chunk, "
-        f"layers {tuple(layers)}): bit-equal in {len(cases)} cases (the "
-        f"path's first chunk, a 2-layer remainder chunk, slot 0 beside "
-        f"dropped tokens); {n_kernels} CUDA kernel per call; {G * n} "
-        f"blocks; device {ms * 1e3:.2f} us/launch (eager call from Python "
-        f"{eager_ms * 1e3:.2f} us; plain version {plain_ms * 1e3:.2f} us "
-        f"eager; bound {b_ms * 1e3:.4f} us by {b_by}, {n_bytes} bytes)")
-    # the shape of one launch when each layer of each frame was restored
-    # on its own: one layer of one 8-token frame
-    one, frame = pages[0], q[0, :frame_len]
-    s1 = scales[0].contiguous()
-    r1 = rows[:frame_len].contiguous()
-    ms1 = graph_ms(lambda: kv_ops.kv_restore(one, frame, s1, r1))
-    eager1 = time_ms(lambda: kv_ops.kv_restore(one, frame, s1, r1))
-    plain1 = time_ms(lambda: kv_restore_ref(one, frame, s1, r1))
-    n1 = frame_len
-    b1, b1_by = bound(n1 * H * D * (1 + 4) + H * 4 + n1 * 4,
-                      2 * n1 * H * D)
-    log(f"[kernel] kv_restore n={n1} H={H} D={D} (one layer of one frame, "
-        f"the per-layer shape before one launch per chunk): device "
-        f"{ms1 * 1e3:.2f} us/launch (eager call {eager1 * 1e3:.2f} us; "
-        f"plain version {plain1 * 1e3:.2f} us eager; bound "
-        f"{b1 * 1e3:.4f} us by {b1_by})")
-    # the floor under both: one PyTorch kernel on 16 bytes, graph-replayed
-    tiny = torch.zeros(4, device=dev)
-    floor_ms = graph_ms(lambda: tiny.add_(1.0))
-    log(f"[kernel] launch floor: one PyTorch kernel on 16 bytes, device "
-        f"{floor_ms * 1e3:.2f} us/launch in a CUDA-graph replay")
-    return dict(name="kv_restore", route="cuda",
+        def call():
+            kv_ops.kv_restore_layers(pages, layers_c, q_c, scales_c, rows_c)
+        ms = graph_ms(call)
+        eager_ms = time_ms(call)
+        # the plain version's boolean-mask scatter synchronises with the
+        # host, so it cannot be captured: its time includes that round trip
+        plain_ms = time_ms(lambda: kv_restore_layers_ref(
+            pages, layers_c, q_c, scales_c, rows_c))
+        n_bytes = G * n * H * D * (1 + 4) + G * H * 4 + n * 4
+        b_ms, b_by = bound(n_bytes, 2 * G * n * H * D)
+        by_group[G] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+        log(f"[kernel] kv_restore_layers {cfg.name} G={G} n={n} H={H} D={D} "
+            f"(one chunk, layers {tuple(layers_c)}): bit-equal in "
+            f"{len(cases)} cases (the path's first chunk, a "
+            f"{len(cases[1][1])}-layer remainder chunk, slot 0 beside "
+            f"dropped tokens); {n_kernels} CUDA kernel per call; {G * n} "
+            f"blocks; device {ms * 1e3:.2f} us/launch (eager call from "
+            f"Python {eager_ms * 1e3:.2f} us; plain version "
+            f"{plain_ms * 1e3:.2f} us eager; bound {b_ms * 1e3:.4f} us by "
+            f"{b_by}, {n_bytes} bytes)")
+    if frame_timing:
+        # the shape of one launch when each layer of each frame was
+        # restored on its own: one layer of one 8-token frame
+        one, frame = pages[0], q[0, :frame_len]
+        s1 = scales[0].contiguous()
+        r1 = rows[:frame_len].contiguous()
+        ms1 = graph_ms(lambda: kv_ops.kv_restore(one, frame, s1, r1))
+        eager1 = time_ms(lambda: kv_ops.kv_restore(one, frame, s1, r1))
+        plain1 = time_ms(lambda: kv_restore_ref(one, frame, s1, r1))
+        n1 = frame_len
+        b1, b1_by = bound(n1 * H * D * (1 + 4) + H * 4 + n1 * 4,
+                          2 * n1 * H * D)
+        log(f"[kernel] kv_restore n={n1} H={H} D={D} (one layer of one "
+            f"frame, the per-layer shape before one launch per chunk): "
+            f"device {ms1 * 1e3:.2f} us/launch (eager call "
+            f"{eager1 * 1e3:.2f} us; plain version {plain1 * 1e3:.2f} us "
+            f"eager; bound {b1 * 1e3:.4f} us by {b1_by})")
+        # the floor under both: one PyTorch kernel on 16 bytes,
+        # graph-replayed
+        tiny = torch.zeros(4, device=dev)
+        floor_ms = graph_ms(lambda: tiny.add_(1.0))
+        log(f"[kernel] launch floor: one PyTorch kernel on 16 bytes, device "
+            f"{floor_ms * 1e3:.2f} us/launch in a CUDA-graph replay")
+    del pages
+    torch.cuda.empty_cache()
+    return dict(by_group[len(layers)], name="kv_restore", route="cuda",
                 source="src/repro_torch/kernels/kv_restore/kv_restore.cu",
                 replaces="src/repro/kernels/kv_restore/kv_restore.py:35",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                max_abs_err=err, library_ms=None, by_group=by_group)
+
+
+def restores_by_group(man) -> dict:
+    """The share of a fetch's ``kv_restore`` launches at each group size:
+    every layer group holds the same chunk positions, so a group of G
+    layers takes (groups of G) / (groups) of the launches of any fetch,
+    whole or partial."""
+    sizes = [len(g) for g in man.layer_groups]
+    return {G: sizes.count(G) / len(sizes) for G in set(sizes)}
 
 
 def paged_attention_case(dev, H, K, hd, ps, lens, width, seed,
@@ -910,7 +980,7 @@ def serve(dev, cfg, params, store, key, prompts, plain, reuse: bool):
 
 
 def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
-              frames):
+              frames, tag: str = "main"):
     key = prefix_key(prefix)
     eng, reqs = serve(dev, cfg, params, store, key, prompts, plain, True)
     reuse_reqs = reqs[:2]
@@ -948,7 +1018,7 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
     decode_steps = len({t for r in reqs for t in r.token_times[1:]})
     want = {"kv_restore": 2 * expected_restores(cfg, man),
             "paged_attention": cfg.num_layers * decode_steps}
-    log(f"[main] launches {launches}, expected {want} "
+    log(f"[{tag}] launches {launches}, expected {want} "
         f"({decode_steps} decode steps)")
     check(launches == want, "launch counts differ from the main path's")
     # EngineStats counts each token once per restored chunk: k and v of
@@ -959,9 +1029,9 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
     for r in reqs:
         fetch = "" if r.fetch_done is None else \
             f", fetch+decode+restore {r.fetch_done - r.fetch_started:.3f} s"
-        log(f"[main] rid {r.rid} ({'reuse' if r.reuse_tokens else 'plain'})"
+        log(f"[{tag}] rid {r.rid} ({'reuse' if r.reuse_tokens else 'plain'})"
             f": TTFT {r.ttft:.3f} s{fetch}")
-    log(f"[main] decode step ({len(reqs)} sequences, {cfg.num_layers} "
+    log(f"[{tag}] decode step ({len(reqs)} sequences, {cfg.num_layers} "
         f"layers): median {statistics.median(step_ms):.2f} ms over "
         f"{len(step_ms)} steps; "
         f"fetched {eng.stats.fetched_bytes} bytes, restore buffer high "
@@ -976,7 +1046,7 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
     full.run()
     for r in full_reqs[:2]:
         same = full.outputs[r.rid] == outputs[r.rid]
-        log(f"[main] rid {r.rid}: reuse generation "
+        log(f"[{tag}] rid {r.rid}: reuse generation "
             f"{'matches' if same else 'differs from'}"
             f" a full prefill of the same prompt")
     del full
@@ -1545,19 +1615,27 @@ def fleet_path(dev, cfg, params, man, raw_kv_bytes, anc, prefix, prompts,
 
 # -- phase 6: agreement with the plain versions at a small size ---------------
 
-def small_reference(dev) -> None:
-    cfg = reduce_config(get_config("lwm-7b"))
+def to_device(tree, dev):
+    """A copy of a parameter tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def small_engine(dev, arch: str, num_layers: int = 2):
+    """A reduced engine on the CPU and on the card from the same weights:
+    two reuse requests of a 48-token prefix and one plain request must
+    generate the same tokens.  Returns (cfg, CPU params, card params,
+    prefix, prompts, donor K/V)."""
+    cfg = reduce_config(get_config(arch), num_layers=num_layers)
     params = init_params(cfg, torch.Generator().manual_seed(SEED),
                          device="cpu")
     rng = np.random.default_rng(SEED + 1)
     prefix, prompts = shared_prefix_tokens(rng, cfg.vocab_size, 48, 2, 8)
     kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
-    to_dev = lambda t: t.to(dev)  # noqa: E731
-    dev_params = {k: (to_dev(v) if k != "layers" else
-                      [{n: ({m: to_dev(w) for m, w in x.items()}
-                            if isinstance(x, dict) else to_dev(x))
-                        for n, x in lp.items()} for lp in v])
-                  for k, v in params.items()}
+    dev_params = to_device(params, dev)
     outs = []
     for d, p in (("cpu", params), (dev, dev_params)):
         store = KVStore()
@@ -1571,8 +1649,15 @@ def small_reference(dev) -> None:
         eng.submit(prompts[0], max_new_tokens=6)
         eng.run()
         outs.append([eng.outputs[i] for i in range(3)])
-    check(outs[0] == outs[1], f"card {outs[1]} != cpu {outs[0]}")
-    log(f"[small] reduced lwm-7b on the card == on the CPU: {outs[1]}")
+    check(outs[0] == outs[1], f"{cfg.name}: card {outs[1]} != cpu {outs[0]}")
+    log(f"[small] reduced {arch} ({num_layers} layers) engine on the card == "
+        f"on the CPU: {outs[1]}")
+    return cfg, params, dev_params, prefix, prompts, kv_k, kv_v
+
+
+def small_reference(dev) -> None:
+    cfg, params, dev_params, prefix, prompts, kv_k, kv_v = small_engine(
+        dev, "lwm-7b")
     # the storage script and two users behind a FairScheduler on the
     # virtual clock, on the CPU and on the card
     man = encode_prefix(kv_k, kv_v, prefix=prefix_key(prefix),
@@ -1830,12 +1915,7 @@ def small_mamba_reference(dev) -> None:
                          device="cpu")
     rng = np.random.default_rng(SEED + 1)
     prefix, prompts = shared_prefix_tokens(rng, cfg.vocab_size, 100, 2, 8)
-    to_dev = lambda t: t.to(dev)  # noqa: E731
-    dev_params = {k: (to_dev(v) if k != "layers" else
-                      [{n: ({m: to_dev(w) for m, w in x.items()}
-                            if isinstance(x, dict) else to_dev(x))
-                        for n, x in lp.items()} for lp in v])
-                  for k, v in params.items()}
+    dev_params = to_device(params, dev)
     outs = []
     for d, p in (("cpu", params), (dev, dev_params)):
         before = ssd_ops.launches
@@ -1860,6 +1940,143 @@ def small_mamba_reference(dev) -> None:
     check(outs[0] == outs[1], f"card {outs[1]} != cpu {outs[0]}")
     log(f"[small] reduced mamba2 snapshot path on the card == on the CPU: "
         f"{outs[1]}")
+
+
+# -- phases 11-13: deepseek-moe-16b at full width ----------------------------
+
+def moe_path(dev, cfg, params, store, man, prefix, prompts, plain, frames):
+    """Phase 13: phase 4's requests through deepseek-moe-16b's engine,
+    then the plain request's first-token logits against
+    ``transformer.prefill`` of the same prompt on the card (both route
+    the 528 tokens as one group).  Returns the kernels' launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = []
+    collect = paged_model.prefill_collect_kv
+
+    def recorded(params_, cfg_, tokens):
+        logits, kvs = collect(params_, cfg_, tokens)
+        served.append((tokens[0].cpu().numpy(), logits[0]))
+        return logits, kvs
+
+    with mock.patch.object(paged_model, "prefill_collect_kv", recorded):
+        launches, _ = main_path(dev, cfg, params, store, man, prefix,
+                                prompts, plain, frames, tag="moe")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = next(lg for toks, lg in served if np.array_equal(toks, plain))
+    ref, _ = tf.prefill(params, cfg, tokens=torch.as_tensor(plain[None],
+                                                             device=dev))
+    ref = ref[0, 0]
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    top2 = torch.topk(ref, 2).values
+    log(f"[moe] plain request's first-token logits ({len(plain)} tokens, "
+        f"one routing group): engine vs transformer.prefill max abs err "
+        f"{err:.4g} of the largest |logit| {scale:.4g}; argmax "
+        f"{'agrees' if int(got.argmax()) == int(ref.argmax()) else 'differs'}"
+        f" (top-2 margin {(top2[0] - top2[1]).item():.4g})")
+    check(err <= LOGIT_TOL * scale,
+          "the engine's prefill logits differ from transformer.prefill's")
+    log(f"[moe] phase wall {wall:.2f} s (page checks included); peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB) beside "
+        f"{n_params(params) * 4 / 2**30:.2f} GiB of weights")
+    return launches
+
+
+# -- phase 14: the reduced zoo, card against CPU -------------------------------
+
+def zoo_inputs(cfg, n_text: int):
+    """(tokens, embeds, mask_positions) of a batch of 2, per frontend."""
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, n_text)))
+    if cfg.frontend == "none":
+        return tokens, None, None
+    n_emb = cfg.num_patch_tokens if cfg.frontend == "vision" else n_text
+    embeds = torch.as_tensor(
+        rng.standard_normal((2, n_emb, cfg.d_model)).astype(np.float32)
+        * 0.02)
+    if cfg.frontend == "vision":
+        return tokens, embeds, None
+    return None, embeds, torch.as_tensor(rng.random((2, n_text)) < 0.2)
+
+
+def zoo_run(cfg, params, inputs, dev):
+    """forward_full, then prefill + decode_step for a decoder (a 72-token
+    prompt, past the reduced 64-token windows, and 4 steps).  Returns the
+    logits and aux on the host, and every MoE layer's routing."""
+    tokens, embeds, mask = (None if x is None else x.to(dev) for x in inputs)
+    routes = []
+    route = moe_mod.route
+
+    def recorded(p, x, cfg_):
+        out = route(p, x, cfg_)
+        routes.append((out[0].cpu(), out[2].cpu()))
+        return out
+
+    with mock.patch.object(moe_mod, "route", recorded):
+        logits, aux = tf.forward_full(params, cfg, tokens=tokens,
+                                      embeds=embeds, mask_positions=mask)
+        steps = []
+        if cfg.supports_decode:
+            n_emb = 0 if embeds is None else embeds.shape[1]
+            cache = tf.init_cache(cfg, 2, n_emb + 76, device=dev)
+            lg, cache = tf.prefill(params, cfg, tokens=tokens[:, :72],
+                                   embeds=embeds, cache=cache)
+            steps.append(lg[:, 0])
+            for i in range(72, 76):
+                lg, cache = tf.decode_step(params, cfg, tokens[:, i],
+                                           n_emb + i, cache)
+                steps.append(lg)
+    return (logits.cpu(), float(aux), [x.cpu() for x in steps], routes)
+
+
+def zoo_reference(dev) -> None:
+    """Each of the ten assigned archs, reduced, from weights drawn on the
+    CPU: the card's logits within 2e-4 of the largest |logit| of the
+    CPU's, the MoE aux within 1e-5.  A top-k routing choice or an argmax
+    that differs is logged with its margin on the CPU."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = reduce_config(get_config(arch))
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        inputs = zoo_inputs(cfg, 76)
+        (lg, aux, steps, routes), (lg_d, aux_d, steps_d, routes_d) = (
+            zoo_run(cfg, params, inputs, "cpu"),
+            zoo_run(cfg, to_device(params, dev), inputs, dev))
+        errs = []
+        for what, a, b in [("forward", lg, lg_d)] + [
+                (f"step {i}", x, y) for i, (x, y) in enumerate(
+                    zip(steps, steps_d))]:
+            e, scale = (b - a).abs().max().item(), a.abs().max().item()
+            errs.append(e / scale)
+            flips = (a.argmax(-1) != b.argmax(-1)).nonzero().tolist()
+            for idx in flips:
+                top2 = torch.topk(a[tuple(idx)], 2).values
+                log(f"[zoo] {arch} {what}: argmax differs at {idx}, CPU "
+                    f"top-2 margin {(top2[0] - top2[1]).item():.4g}")
+            check(e <= LOGIT_TOL * scale,
+                  f"{arch} {what}: card logits off by {e} of {scale}")
+        check(abs(aux - aux_d) <= 1e-5, f"{arch}: aux {aux_d} != {aux}")
+        n_diff = 0
+        for (probs, tope), (_, tope_d) in zip(routes, routes_d):
+            k = tope.shape[-1]
+            for idx in (tope != tope_d).any(-1).nonzero().tolist():
+                n_diff += 1
+                p = torch.sort(probs[tuple(idx)], descending=True).values
+                log(f"[zoo] {arch}: top-{k} choice differs at {idx}, CPU "
+                    f"margin {(p[k - 1] - p[k]).item():.4g}")
+        window = cfg.sliding_window or cfg.local_window
+        log(f"[zoo] reduced {arch}: card == CPU within {max(errs):.3g} of "
+            f"the largest |logit| (forward"
+            + (f", a 72-token prefill"
+               + (f" past its {window}-token window" if window else "")
+               + f" and {len(steps) - 1} decode steps" if steps else "")
+            + f"); aux {aux_d:.6g}"
+            + (f"; {len(routes)} MoE routings, {n_diff} token(s) routed "
+               f"differently" if routes else ""))
 
 
 def main() -> int:
@@ -1887,9 +2104,13 @@ def main() -> int:
     check([len(p) + NEW_TOKENS - 1 for p in prompts]
           + [len(plain) + NEW_TOKENS - 1] == DECODE_CTX,
           "the path's decode contexts differ from DECODE_CTX")
-    rows = [kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"])]
+    kv_row = kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"],
+                              frame_timing=True)
+    rows = [kv_row]
     attn = {}
     for case, arch, lens, width, seed in ATTN_CASES:
+        if arch == DS_ARCH:
+            continue  # phase 12
         c = get_config(arch)
         attn[case] = paged_attention_case(
             dev, c.num_heads, c.num_kv_heads, c.head_dim, PAGE_SIZE, lens,
@@ -1909,16 +2130,75 @@ def main() -> int:
         dev, cfg, params, man, int(kv_k.nbytes + kv_v.nbytes), anc, prefix,
         prompts, plain, wall_outputs, frames)
     del anc
-    # paged_attention runs at many shapes on lwm-7b's path: the batch of
-    # three in phase 4, one request alone in phase 5b, and the fleet's
-    # decode steps in phase 5c.  Each is held, timed and counted on its
-    # own; the row's times are their means weighted by launches
+    # paged_attention runs at many shapes: the batch of three in phase 4,
+    # one request alone in phase 5b, the fleet's decode steps in phase 5c
+    # and deepseek-moe-16b's batch of three in phase 13.  Each is held,
+    # timed and counted on its own; the row's times are their means
+    # weighted by launches
     per_shape = {"lwm-7b": launches["paged_attention"],
                  "lwm-7b B=1": stored["paged_attention"]}
     for case, _, lens, width, _ in ATTN_CASES:
-        if (tuple(lens), width) in fleet_shapes:
+        if (tuple(lens), width) in fleet_shapes and case.startswith(
+                "lwm-7b"):
             per_shape[case] = fleet_shapes[tuple(lens), width]
+    for name, n in stored.items():
+        launches[name] += n + fleet[name]
+    # kv_restore likewise, by the chunk shapes of lwm-7b's groups
+    kv_shapes = {("lwm-7b", G): launches["kv_restore"] * share
+                 for G, share in restores_by_group(man).items()}
+    kv_times = {("lwm-7b", G): t for G, t in kv_row["by_group"].items()}
+    del params, store, man, kv_k, kv_v, frames
+    torch.cuda.empty_cache()
+    small_reference(dev)
+
+    m_cfg, m_params, m_prefix, m_prompts = mamba_set_up(dev)
+    rows.append(ssd_scan_phase(dev, m_cfg, counts["ssd_scan"]))
+    launches["ssd_scan"] = mamba_path(dev, m_cfg, m_params, m_prefix,
+                                      m_prompts)
+    del m_params
+    torch.cuda.empty_cache()
+    small_mamba_reference(dev)
+
+    # deepseek-moe-16b at full width: set-up, its kernel shapes, its path
+    t_phase = time.perf_counter()
+    (d_cfg, d_params, d_store, d_man, d_prefix, d_prompts, d_plain, _,
+     _) = set_up(dev, DS_ARCH, "moe")
+    check(n_params(d_params) == DS_PARAMS,
+          f"{DS_ARCH}: {n_params(d_params)} parameters, not {DS_PARAMS}")
+    check([len(p) + NEW_TOKENS - 1 for p in d_prompts]
+          + [len(d_plain) + NEW_TOKENS - 1] == DECODE_CTX,
+          f"{DS_ARCH}'s decode contexts differ from DECODE_CTX")
+    log(f"[moe] layer groups {[len(g) for g in d_man.layer_groups]} "
+        f"({d_cfg.num_layers} layers: {len(d_man.layer_groups) - 1} groups "
+        f"of 3 and a remainder group of {len(d_man.layer_groups[-1])}); "
+        f"{expected_restores(d_cfg, d_man)} chunks per fetch")
+    d_kv = kv_restore_phase(
+        dev, d_cfg, d_man, counts[f"kv_restore_layers {DS_ARCH} G=3"],
+        frame_timing=False)
+    kv_row["max_abs_err"] = max(kv_row["max_abs_err"], d_kv["max_abs_err"])
+    kv_times.update({(DS_ARCH, G): t for G, t in d_kv["by_group"].items()})
+    for case, arch, lens, width, seed in ATTN_CASES:
+        if arch == DS_ARCH:
+            attn[case] = paged_attention_case(
+                dev, d_cfg.num_heads, d_cfg.num_kv_heads, d_cfg.head_dim,
+                PAGE_SIZE, lens, width, seed,
+                counts[f"paged_attention {case}"])
+    d_launches = moe_path(dev, d_cfg, d_params, d_store, d_man, d_prefix,
+                          d_prompts, d_plain, {})
+    per_shape[DS_ARCH] = d_launches["paged_attention"]
+    kv_shapes.update({(DS_ARCH, G): d_launches["kv_restore"] * share
+                      for G, share in restores_by_group(d_man).items()})
+    for name, n in d_launches.items():
+        launches[name] += n
+    del d_params, d_store, d_man
+    torch.cuda.empty_cache()
+    log(f"[moe] phases 11-13 wall {time.perf_counter() - t_phase:.2f} s")
+    small_engine(dev, DS_ARCH, num_layers=4)
+    zoo_reference(dev)
+
     n_pa = sum(per_shape.values())
+    check(launches["paged_attention"] == n_pa,
+          "paged_attention's launches by shape do not add up")
     for case, n in per_shape.items():
         a = attn[case]
         log(f"[kernel] paged_attention {case}: {n} launches on the path; "
@@ -1939,21 +2219,24 @@ def main() -> int:
         f"{row['ms'] * 1e3:.2f} us/call, bound {row['bound_ms'] * 1e3:.3f} "
         f"us; loss over the bound {n_pa * (row['ms'] - row['bound_ms']):.3f}"
         f" ms per run, of it the fleet's {fleet_loss:.3f} ms")
-    for name, n in stored.items():
-        launches[name] += n + fleet[name]
-    check(launches["paged_attention"] == n_pa,
-          "paged_attention's launches by shape do not add up")
-    del params, store, man, kv_k, kv_v, frames
-    torch.cuda.empty_cache()
-    small_reference(dev)
-
-    m_cfg, m_params, m_prefix, m_prompts = mamba_set_up(dev)
-    rows.append(ssd_scan_phase(dev, m_cfg, counts["ssd_scan"]))
-    launches["ssd_scan"] = mamba_path(dev, m_cfg, m_params, m_prefix,
-                                      m_prompts)
-    del m_params
-    torch.cuda.empty_cache()
-    small_mamba_reference(dev)
+    n_kv = sum(kv_shapes.values())
+    check(round(n_kv) == launches["kv_restore"],
+          "kv_restore's launches by shape do not add up")
+    for (arch, G), n in kv_shapes.items():
+        t = kv_times[arch, G]
+        log(f"[kernel] kv_restore_layers {arch} G={G}: {n:.0f} launches on "
+            f"the path; device {t['ms'] * 1e3:.2f} us/launch, bound "
+            f"{t['bound_ms'] * 1e3:.4f} us, plain {t['plain_ms'] * 1e3:.2f} "
+            f"us; loss over the bound {n * (t['ms'] - t['bound_ms']):.3f} "
+            f"ms per run")
+    for k in ("ms", "plain_ms", "bound_ms"):
+        kv_row[k] = sum(n * kv_times[s][k] for s, n in kv_shapes.items()) \
+            / n_kv
+    kv_row["bound_by"] = kv_times[max(kv_shapes, key=kv_shapes.get)][
+        "bound_by"]
+    log(f"[kernel] kv_restore over the path's {launches['kv_restore']} "
+        f"launches: mean {kv_row['ms'] * 1e3:.2f} us/launch, bound "
+        f"{kv_row['bound_ms'] * 1e3:.4f} us")
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -12,6 +12,27 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Tuple
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned, fixed)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Model configuration
 # ---------------------------------------------------------------------------
 
@@ -91,6 +112,26 @@ class ModelConfig:
     def supports_decode(self) -> bool:
         return not self.is_encoder
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode at 500k context holds O(window/state) memory."""
+        kinds = set(self.layer_kinds())
+        if kinds <= {"ssm", "rglru"}:
+            return True
+        if "attn" in kinds:
+            # all attention layers must be windowed
+            window = self.sliding_window or self.local_window
+            return window > 0
+        return True
+
+    def shape_supported(self, shape: InputShape) -> Tuple[bool, str]:
+        """(supported, reason-if-not) for an (arch, input-shape) pair."""
+        if shape.kind == "decode" and self.is_encoder:
+            return False, "encoder-only: no autoregressive decode"
+        if shape.name == "long_500k" and not self.sub_quadratic:
+            return False, "full attention: no sub-quadratic 500k decode path"
+        return True, ""
+
     # approx parameter count (for roofline MODEL_FLOPS)
     def param_count(self, active_only: bool = False) -> int:
         d, L = self.d_model, self.num_layers
@@ -166,6 +207,26 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def list_configs() -> Tuple[str, ...]:
+    _ensure_loaded()
+    return tuple(sorted(_REGISTRY))
+
+
+ASSIGNED_ARCHS = (
+    "hubert-xlarge",
+    "nemotron-4-340b",
+    "h2o-danube-3-4b",
+    "llava-next-mistral-7b",
+    "deepseek-moe-16b",
+    "yi-9b",
+    "mamba2-2.7b",
+    "mixtral-8x22b",
+    "recurrentgemma-9b",
+    "qwen1.5-110b",
+)
+
+PAPER_ARCHS = ("lwm-7b", "yi-34b", "llama3-70b")
+
 _LOADED = False
 
 
@@ -174,9 +235,12 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     _LOADED = True
-    # import every sibling module so registration side-effects run (the
-    # rest of the model-zoo configs arrive with the model-zoo slice)
-    from repro_torch.configs import mamba2_2p7b, paper_models  # noqa: F401
+    # import every sibling module so registration side-effects run
+    from repro_torch.configs import (  # noqa: F401
+        hubert_xlarge, nemotron_4_340b, h2o_danube_3_4b,
+        llava_next_mistral_7b, deepseek_moe_16b, yi_9b, mamba2_2p7b,
+        mixtral_8x22b, recurrentgemma_9b, qwen1p5_110b, paper_models,
+    )
 
 
 # ---------------------------------------------------------------------------

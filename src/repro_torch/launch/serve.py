@@ -7,7 +7,8 @@ or the cluster simulation, on the host.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b \
         --simulate --gbps 16 --context 100000 --method kvfetcher
 
-``--live`` serves the scenario of the JAX package's
+``--live`` serves, for any registered decoder whose layers are all
+attention (dense or MoE), the scenario of the JAX package's
 ``examples/serve_reuse.py``: a donor registers an encoded prefix, a
 batch of requests sharing it fetches, decodes and restores it into
 paged memory and prefills only its suffixes beside one plain request
@@ -189,10 +190,14 @@ def main(argv=None) -> None:
     if args.simulate and not args.live:
         simulate(args)
         return
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.is_encoder or set(cfg.layer_kinds()) != {"attn"}:
+        ap.error(f"--live serves decoders whose layers are all attention; "
+                 f"{cfg.name} has {sorted(set(cfg.layer_kinds()))} layers"
+                 f"{' (an encoder)' if cfg.is_encoder else ''}")
     if args.reduced:
         cfg = reduce_config(cfg)
+    dev = resolve_device(args.device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     print(f"{cfg.name}: random weights from seed 0 on {dev}")

@@ -1,19 +1,35 @@
-"""Full-sequence attention for prefill: MHA/GQA/MQA, causal or
-bidirectional, optional sliding window, with blocked (flash-style,
-online-softmax) variants for long sequences.
+"""Attention: MHA/GQA/MQA, causal / bidirectional / sliding-window masks,
+full-sequence (train/prefill) and single-token (decode) paths, with
+blocked (flash-style, online-softmax) variants for long sequences.
 
-Counterpart of ``repro/models/attention.py::attend`` and its three
-branches.  There is no Pallas kernel behind ``attend`` in the JAX package
-(XLA fuses it), so plain torch ops are the port.
+Counterpart of ``repro/models/attention.py``.  There is no Pallas kernel
+behind these functions in the JAX package (XLA fuses them), so plain
+torch ops are the port; the paged decode of the serving engine goes
+through the paged-attention kernel instead
+(``repro_torch/serving/paged_model.py``).
 
-Shapes: q [b, s, H, hd]; k, v [b, S, K, hd] (K = num_kv_heads);
+Shapes
+------
+x            [b, s, d_model]
+q            [b, s, H, hd]
+k, v         [b, s, K, hd]      (K = num_kv_heads)
+cache k/v    [b, S, K, hd]      (S = capacity; ring buffer when windowed)
 q_pos [b, s]; k_pos [b, S].
+
+The cache functions return new tensors and leave the cache they were
+given as it was, as the JAX functions do.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Tuple
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import apply_rope
 
 NEG_INF = -1e30
 
@@ -154,3 +170,162 @@ def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
         return _attend_blocked(q, k, v, q_pos, k_pos, causal=causal,
                                window=window)
     return _attend_naive(q, k, v, q_pos, k_pos, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    capacity: int  # slots (== seq for full attn, window for SWA/local)
+    windowed: bool
+
+
+def cache_spec(cfg: ModelConfig, seq_len: int, *, local: bool) -> CacheSpec:
+    window = cfg.local_window if local else cfg.sliding_window
+    if window and window < seq_len:
+        return CacheSpec(window, True)
+    return CacheSpec(seq_len, False)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, spec: CacheSpec,
+                  dtype: torch.dtype = torch.float32,
+                  device: DeviceLike = None) -> dict:
+    device = resolve_device(device)
+    shape = (batch, spec.capacity, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_slot(cache_t: torch.Tensor, tok: torch.Tensor,
+               slot: int) -> torch.Tensor:
+    """``cache_t`` [..., S, K, hd] (S on dim -3) with the one-token
+    ``tok`` [..., 1, K, hd] at ``slot``, out of place.  A slot past the
+    end writes the last one, as ``jax.lax.dynamic_update_slice`` clamps
+    its start."""
+    slot = min(slot, cache_t.shape[-3] - 1)
+    idx = torch.tensor([slot], device=cache_t.device)
+    return cache_t.index_copy(cache_t.dim() - 3, idx, tok.to(cache_t.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor, *, window: int,
+                   causal: bool) -> torch.Tensor:
+    """Train / no-cache forward over a full sequence."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = attend(q, k, v, positions, positions, causal=causal, window=window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor, cache: dict,
+                      spec: CacheSpec, *, causal: bool = True
+                      ) -> Tuple[torch.Tensor, dict]:
+    """Full-seq forward that also fills the KV cache (ring when windowed)."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    window = spec.capacity if spec.windowed else 0
+    out = attend(q, k, v, positions, positions, causal=causal, window=window)
+    s = x.shape[1]
+    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+    if spec.windowed and s > spec.capacity:
+        # only the trailing window lands in the ring buffer, in slots
+        # pos % capacity
+        slots = positions[:, -spec.capacity:].long() % spec.capacity
+        bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+        new_k[bidx, slots] = k[:, -spec.capacity:].to(new_k.dtype)
+        new_v[bidx, slots] = v[:, -spec.capacity:].to(new_v.dtype)
+    else:
+        new_k[:, :s] = k.to(new_k.dtype)
+        new_v[:, :s] = v.to(new_v.dtype)
+    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
+            {"k": new_k, "v": new_v})
+
+
+def _valid_slots(spec: CacheSpec, pos: int, last: int,
+                 device) -> torch.Tensor:
+    """Slot i holds a token iff i <= last (before the ring wraps, later
+    slots are empty), or always once the ring is full (windowed, pos >=
+    capacity): ring slots hold positions in (pos - capacity, pos], all
+    attendable under the window."""
+    if spec.windowed and pos >= spec.capacity:
+        return torch.ones(spec.capacity, dtype=torch.bool, device=device)
+    return torch.arange(spec.capacity, device=device) <= last
+
+
+def attention_decode_token(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           pos: int, cache: dict, spec: CacheSpec
+                           ) -> Tuple[torch.Tensor, dict]:
+    """Decode WITHOUT rewriting the cache: attends over the (stale) cache
+    plus the new token's K/V computed on the fly, and returns the token
+    K/V (``k_tok``/``v_tok`` [b, 1, K, hd]) for the caller to write, as
+    the JAX package does for the layers of its scanned cycles."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // K
+    qg = q.reshape(b, K, g, hd)
+    ck, cv = cache["k"], cache["v"]
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32)
+    logits = logits * scale
+    slot = (pos % spec.capacity) if spec.windowed else pos
+    # the new token replaces this slot
+    valid = _valid_slots(spec, pos, pos - 1, ck.device) \
+        & (torch.arange(spec.capacity, device=ck.device) != slot)
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    logits_new = torch.einsum("bkgd,bskd->bkgs", qg, k.to(ck.dtype)
+                              ).to(torch.float32) * scale
+    m = torch.maximum(logits.amax(-1, keepdim=True),
+                      logits_new.amax(-1, keepdim=True))
+    p_cache = torch.exp(logits - m)
+    p_new = torch.exp(logits_new - m)
+    denom = p_cache.sum(-1, keepdim=True) + p_new.sum(-1, keepdim=True)
+    w_cache = (p_cache / denom).to(cv.dtype)
+    w_new = (p_new / denom).to(cv.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", w_cache, cv)
+    out = out + w_new * v.reshape(b, K, 1, hd).to(cv.dtype)
+    out = out.reshape(b, 1, cfg.num_heads, hd)
+    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
+            {"k_tok": k.to(ck.dtype), "v_tok": v.to(cv.dtype)})
+
+
+def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
+                     cache: dict, spec: CacheSpec
+                     ) -> Tuple[torch.Tensor, dict]:
+    """Single-token decode. x [b, 1, d]; pos (same for the batch)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    slot = (pos % spec.capacity) if spec.windowed else pos
+    ck = write_slot(cache["k"], k, slot)
+    cv = write_slot(cache["v"], v, slot)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // K
+    qg = q.reshape(b, K, g, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32)
+    logits = logits / math.sqrt(hd)
+    valid = _valid_slots(spec, pos, pos, ck.device)
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", w, cv).reshape(
+        b, 1, cfg.num_heads, hd)
+    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
+            {"k": ck, "v": cv})

@@ -1,4 +1,4 @@
-"""Shared model components: RMSNorm and RoPE.
+"""Shared model components: RMSNorm, activations and RoPE.
 
 Counterpart of ``repro/models/common.py``; the inits live in
 ``repro_torch/params.py``.
@@ -16,6 +16,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.to(torch.float32))
             ).to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` for every x (torch's own
+    softplus returns x itself above its threshold of 20)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    r = torch.relu(x)
+    return r * r
 
 
 def rope_freqs(head_dim: int, theta: float,

@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.common import squared_relu
+
 
 def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     """x [b, s, d]; swiglu ``wi`` is [d, 2, ff], the others [d, ff]."""
@@ -12,9 +14,7 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
     else:
         h = torch.einsum("bsd,df->bsf", x, p["wi"])
-        if kind == "squared_relu":
-            h = torch.square(F.relu(h))
-        else:
-            # jax.nn.gelu defaults to the tanh approximation
-            h = F.gelu(h, approximate="tanh")
+        # jax.nn.gelu defaults to the tanh approximation
+        h = squared_relu(h) if kind == "squared_relu" else F.gelu(
+            h, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["wo"])

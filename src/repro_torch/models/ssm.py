@@ -25,13 +25,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: F401 (re-exported)
     _segsum, _ssd_inter, ssd_chunked)
-from repro_torch.models.common import rms_norm
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0)`` for every x (torch's own
-    softplus returns x itself above its threshold of 20)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+from repro_torch.models.common import rms_norm, softplus
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,

@@ -1,15 +1,16 @@
 """Model composition: embeddings -> layer stack -> head.
 
-Counterpart of ``repro/models/transformer.py``.  The JAX package stacks
-the repeating layer cycle and scans it; here the stack is the ``layers``
-list that ``params.from_numpy`` builds, and a cache is a list with one
-dict per layer.  Mamba2 (``ssm``) layers are ported; ``attn`` and
-``rglru`` layers of the dense-cache zoo raise until the model-zoo slice
-(the paged attention path of the engine lives in
-``repro_torch/serving/paged_model.py``).
+Counterpart of ``repro/models/transformer.py``, for every layer kind
+(``attn``, ``rglru``, ``ssm``), a dense first layer (``prefix``), the
+cycles of the layer pattern and the remainder layers (``rest``).  The JAX
+package stacks the repeating cycle and scans it; here the stack is the
+``layers`` list that ``params.from_numpy`` builds (prefix, then cycles,
+then rest), and a cache is a list with one dict per layer.  The paged
+attention path of the serving engine lives in
+``repro_torch/serving/paged_model.py``.
 
 Entry points:
-  forward_full(params, cfg, tokens/embeds, ...)   -> (logits, aux)
+  forward_full(params, cfg, tokens/embeds, ...)   -> (logits, moe_aux)
   prefill(params, cfg, tokens/embeds)             -> (logits, cache)
   decode_step(params, cfg, token, pos, cache)     -> (logits, cache)
   init_cache(cfg, batch, seq_len, dtype, device)
@@ -24,16 +25,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rms_norm
 
+MAX_LEARNED_POS = 32_768  # hubert prefill_32k upper bound
+
 Cache = List[Dict[str, torch.Tensor]]
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind!r} layers of the dense-cache model zoo are not ported yet; "
-        f"they arrive with the model-zoo slice (ROADMAP Queue 1 item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -51,36 +52,54 @@ def layer_plan(cfg: ModelConfig) -> Tuple[int, int, Tuple[str, ...]]:
     return n_prefix, n_cycles, rest
 
 
-def _check_plan(cfg: ModelConfig) -> None:
-    """The ported stacks are whole cycles of their pattern (Mamba2: 64
-    cycles of one ``ssm`` layer); a dense first layer (``prefix``) or
-    remainder layers (``rest``) come with the model-zoo slice."""
+def stack_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Each layer's kind in the order of ``params["layers"]``: the prefix
+    (attention with a dense MLP), the cycles of the pattern, the rest."""
+    n_prefix, n_cycles, rest = layer_plan(cfg)
+    return (("attn",) * n_prefix + tuple(cfg.layer_pattern) * n_cycles
+            + tuple(rest))
+
+
+def _attn_window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window or cfg.local_window
+
+
+def _check_whole_cycles(cfg: ModelConfig) -> None:
+    """The snapshot names (``cycles/l<j>/<name>``) cover stacks made of
+    whole cycles of their pattern only (Mamba2: 64 cycles of one ``ssm``
+    layer), as the JAX package's snapshot path does."""
     n_prefix, _, rest = layer_plan(cfg)
     if n_prefix or rest:
-        raise _unported("prefix" if n_prefix else "rest")
+        raise ValueError(
+            f"{cfg.name}: state snapshots name the layers of whole cycles; "
+            f"this stack has {'a prefix' if n_prefix else 'remainder'} "
+            f"layers")
 
 
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
 
-def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                       dtype: torch.dtype, device: torch.device) -> dict:
+    if kind == "attn":
+        spec = attn_mod.cache_spec(cfg, seq_len, local=cfg.local_window > 0)
+        return attn_mod.init_kv_cache(cfg, batch, spec, dtype, device)
     if kind == "ssm":
         return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-    raise _unported(kind)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype: torch.dtype = torch.float32,
                device: DeviceLike = None) -> Cache:
-    """One cache dict per layer (``seq_len`` sizes the attention caches of
-    a later slice; recurrent caches do not depend on it)."""
-    del seq_len
-    _check_plan(cfg)
+    """One cache dict per layer; attention caches hold ``seq_len`` slots,
+    or a ring of the window when the window is shorter."""
     device = resolve_device(device)
-    return [_init_layer_cache(cfg, kind, batch, dtype, device)
-            for kind in cfg.layer_kinds()]
+    return [_init_layer_cache(cfg, kind, batch, seq_len, dtype, device)
+            for kind in stack_kinds(cfg)]
 
 
 def snapshot_states(cache: Cache, cfg: ModelConfig) -> Dict[str, np.ndarray]:
@@ -91,7 +110,7 @@ def snapshot_states(cache: Cache, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     [n_cycles, b, nh, hd, S] and ``cycles/l0/conv``
     [n_cycles, b, w-1, din+2GS].  Keeping the stacked names matters:
     ``encode_state_snapshot`` takes one absmax scale per named array."""
-    _check_plan(cfg)
+    _check_whole_cycles(cfg)
     cl = len(cfg.layer_pattern)
     stacks: Dict[str, List[torch.Tensor]] = {}
     for i, layer in enumerate(cache):
@@ -107,7 +126,7 @@ def cache_from_snapshot(states: Dict[str, np.ndarray], cfg: ModelConfig,
     """Rebuild a cache from ``snapshot_states``' arrays (or their decoded
     copies), bit for bit.  ``batch`` repeats a batch-1 snapshot for that
     many sequences."""
-    _check_plan(cfg)
+    _check_whole_cycles(cfg)
     device = resolve_device(device)
     cl = len(cfg.layer_pattern)
     cache: Cache = [{} for _ in range(cfg.num_layers)]
@@ -129,33 +148,93 @@ def cache_from_snapshot(states: Dict[str, np.ndarray], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                 mode: str, cache: Optional[dict]
-                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache).  No ported layer has an auxiliary loss (the
-    MoE layers that do arrive with the model-zoo slice)."""
-    if kind != "ssm":
-        raise _unported(kind)
+                 mode: str, cache: Optional[dict], pos: Optional[int],
+                 positions: torch.Tensor, token_cache_updates: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    window = _attn_window(cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "decode":
-        out, new_cache = ssm_mod.apply_ssm_decode(p["ssm"], h, cfg, cache)
+    new_cache = None
+    if kind == "attn":
+        causal = not cfg.is_encoder
+        if mode == "full":
+            out = attn_mod.attention_full(p["attn"], h, cfg, positions,
+                                          window=window, causal=causal)
+        elif mode == "prefill":
+            cap = cache["k"].shape[1]
+            # ring writes only needed when the prompt overflows the window
+            spec = attn_mod.CacheSpec(cap, windowed=cap < positions.shape[-1])
+            out, new_cache = attn_mod.attention_prefill(
+                p["attn"], h, cfg, positions, cache, spec, causal=causal)
+        else:  # decode
+            # windowed slot/validity math is a no-op while pos < capacity,
+            # so it is safe to use ring semantics whenever a window exists
+            spec = attn_mod.CacheSpec(cache["k"].shape[1],
+                                      windowed=window > 0)
+            if token_cache_updates:
+                # the layers of the JAX package's scanned cycles: attend
+                # over the stale cache plus the new token, then write it
+                out, tok = attn_mod.attention_decode_token(
+                    p["attn"], h, cfg, pos, cache, spec)
+                slot = (pos % spec.capacity) if window > 0 else pos
+                new_cache = {
+                    "k": attn_mod.write_slot(cache["k"], tok["k_tok"], slot),
+                    "v": attn_mod.write_slot(cache["v"], tok["v_tok"], slot)}
+            else:
+                out, new_cache = attn_mod.attention_decode(
+                    p["attn"], h, cfg, pos, cache, spec)
+    elif kind == "rglru":
+        if mode == "decode":
+            out, new_cache = rglru_mod.apply_rglru_decode(p["rec"], h, cfg,
+                                                          cache)
+        else:
+            out, new_cache = rglru_mod.apply_rglru_full(
+                p["rec"], h, cfg, with_cache=(mode == "prefill"))
+    elif kind == "ssm":
+        if mode == "decode":
+            out, new_cache = ssm_mod.apply_ssm_decode(p["ssm"], h, cfg, cache)
+        else:
+            out, new_cache = ssm_mod.apply_ssm_full(
+                p["ssm"], h, cfg, with_cache=(mode == "prefill"))
+        return x + out, new_cache, aux  # mamba2 blocks have no MLP
     else:
-        out, new_cache = ssm_mod.apply_ssm_full(
-            p["ssm"], h, cfg, with_cache=(mode == "prefill"))
-    return x + out, new_cache
+        raise ValueError(kind)
+
+    x = x + out
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        if mode == "decode":
+            # the batch's tokens route as one group
+            b = h2.shape[0]
+            out2, aux = moe_mod.apply_moe(p["moe"], h2.reshape(1, b, -1),
+                                          cfg)
+            out2 = out2.reshape(b, 1, -1)
+        else:
+            out2, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
+    else:
+        out2 = mlp_mod.apply_mlp(p["mlp"], h2, cfg.mlp_kind)
+    return x + out2, new_cache, aux
 
 
 def _run_stack(params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
-               cache: Optional[Cache]
+               cache: Optional[Cache], pos: Optional[int],
+               positions: torch.Tensor
                ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, summed aux loss)."""
+    n_prefix, n_cycles, _ = layer_plan(cfg)
+    cycle_end = n_prefix + n_cycles * len(cfg.layer_pattern)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Cache = []
-    _check_plan(cfg)
-    for i, (kind, lp) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        c = cache[i] if cache is not None else None
-        x, nc = _apply_layer(kind, lp, x, cfg, mode=mode, cache=c)
+    for i, (kind, lp) in enumerate(zip(stack_kinds(cfg), params["layers"])):
+        x, nc, aux = _apply_layer(
+            kind, lp, x, cfg, mode=mode,
+            cache=cache[i] if cache is not None else None, pos=pos,
+            positions=positions,
+            token_cache_updates=mode == "decode" and n_prefix <= i < cycle_end)
+        aux_total = aux_total + aux
         new_cache.append(nc)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, (new_cache if cache is not None else None), aux
+    return x, (new_cache if cache is not None else None), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -163,17 +242,25 @@ def _run_stack(params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
-                 embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    """Frontend embeddings (if any) then token embeddings, along the
-    sequence.  Learned positions and encoder masks come with the
-    model-zoo slice: the port's params carry no ``pos_embed`` or
-    ``mask_embed``."""
+                 embeds: Optional[torch.Tensor], positions: torch.Tensor,
+                 mask_positions: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Frontend embeddings (an encoder's masked frames replaced by
+    ``mask_embed``) then token embeddings, along the sequence, plus
+    learned positions where the config has no RoPE."""
     parts = []
     if embeds is not None:
-        parts.append(embeds)
+        e = embeds
+        if cfg.is_encoder and mask_positions is not None:
+            e = torch.where(mask_positions[..., None],
+                            params["mask_embed"].to(e.dtype), e)
+        parts.append(e)
     if tokens is not None:
         parts.append(params["embed"][tokens])
-    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][positions.long()]
+    return x
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -187,11 +274,26 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None
+def _positions(tokens, embeds) -> torch.Tensor:
+    ref = tokens if tokens is not None else embeds
+    b = ref.shape[0]
+    s = (0 if tokens is None else tokens.shape[1]) + \
+        (0 if embeds is None else embeds.shape[1])
+    return torch.arange(s, dtype=torch.int32, device=ref.device).expand(b, s)
+
+
+def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                 mask_positions=None, remat: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (train path). Returns (logits, moe_aux)."""
-    x = embed_inputs(params, cfg, tokens, embeds)
-    x, _, aux = _run_stack(params, cfg, x, mode="full", cache=None)
+    if remat:
+        raise NotImplementedError(
+            "forward_full(remat=True) is not ported yet: activation "
+            "checkpointing arrives with the training slice of the port")
+    positions = _positions(tokens, embeds)
+    x = embed_inputs(params, cfg, tokens, embeds, positions, mask_positions)
+    x, _, aux = _run_stack(params, cfg, x, mode="full", cache=None, pos=None,
+                           positions=positions)
     return lm_logits(params, cfg, x), aux
 
 
@@ -200,19 +302,27 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             dtype: torch.dtype = torch.float32
             ) -> Tuple[torch.Tensor, Cache]:
     """Process the full prompt, fill the cache, return last-pos logits."""
-    x = embed_inputs(params, cfg, tokens, embeds)
+    positions = _positions(tokens, embeds)
+    b, s = positions.shape
     if cache is None:
-        cache = init_cache(cfg, x.shape[0], x.shape[1], dtype,
-                           device=x.device)
-    x, new_cache, _ = _run_stack(params, cfg, x, mode="prefill", cache=cache)
+        cache = init_cache(cfg, b, s, dtype, device=positions.device)
+    x = embed_inputs(params, cfg, tokens, embeds, positions)
+    x, new_cache, _ = _run_stack(params, cfg, x, mode="prefill", cache=cache,
+                                 pos=None, positions=positions)
     return lm_logits(params, cfg, x[:, -1:, :]), new_cache
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
                 cache: Cache) -> Tuple[torch.Tensor, Cache]:
-    """One decode step. token [b] int; pos (next index), which recurrent
-    layers do not read."""
-    del pos
+    """One decode step. token [b] int; pos (the next index, the same for
+    the batch)."""
+    pos = int(pos)
+    b = token.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32,
+                           device=token.device)
     x = params["embed"][token][:, None, :]
-    x, new_cache, _ = _run_stack(params, cfg, x, mode="decode", cache=cache)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][positions.long()]
+    x, new_cache, _ = _run_stack(params, cfg, x, mode="decode", cache=cache,
+                                 pos=pos, positions=positions)
     return lm_logits(params, cfg, x)[:, 0], new_cache

@@ -4,17 +4,23 @@ parameter tree, and a seeded init with the same distributions.
 The port's parameters are a plain dict::
 
     {"embed": [V, d], "final_norm": [d], "lm_head": [d, V] (untied only),
-     "layers": [per-layer dict, ...]}
+     "pos_embed": [32768, d] (no RoPE only), "mask_embed": [d] (encoders
+     only), "layers": [per-layer dict, ...]}
 
 Each layer dict keeps the JAX package's names and layouts: ``ln1``/``ln2``
-[d], ``attn`` {``wq`` [d, H, hd], ``wk``/``wv`` [d, K, hd], ``wo``
-[H, hd, d], optional ``bq``/``bk``/``bv``}, ``mlp`` {``wi`` [d, 2, ff]
-for SwiGLU else [d, ff], ``wo`` [ff, d]}; a Mamba2 layer has ``ln1`` and
-``ssm`` {``w_in`` [d, 2 din + 2 G S + nh], ``conv`` [w, din + 2 G S],
-``A_log``/``D``/``dt_bias`` [nh] fp32, ``norm_w`` [din], ``w_out``
-[din, d]} only.  The JAX tree stacks the
-repeating layer cycle along a leading axis (``jax.vmap`` init); here it
-is unstacked into the ``layers`` list.
+[d]; ``attn`` {``wq`` [d, H, hd], ``wk``/``wv`` [d, K, hd], ``wo``
+[H, hd, d], optional ``bq``/``bk``/``bv``} or ``rec`` (RG-LRU: ``w_x``,
+``w_gate`` [d, w], ``conv`` [4, w], ``w_a``/``w_i`` [w, w], ``lam`` [w]
+fp32, ``w_out`` [w, d]); then ``mlp`` {``wi`` [d, 2, ff] for SwiGLU else
+[d, ff], ``wo`` [ff, d]} or ``moe`` {``router`` [d, E] fp32, ``wi``
+[E, d, 2, ff] for SwiGLU else [E, d, ff], ``wo`` [E, ff, d], optional
+``shared`` (an ``mlp`` of ``num_shared_experts * d_ff``)}.  A Mamba2
+layer has ``ln1`` and ``ssm`` {``w_in`` [d, 2 din + 2 G S + nh], ``conv``
+[w, din + 2 G S], ``A_log``/``D``/``dt_bias`` [nh] fp32, ``norm_w``
+[din], ``w_out`` [din, d]} only.  The JAX tree holds a dense first layer
+in ``prefix``, stacks the repeating layer cycle along a leading axis
+(``jax.vmap`` init) in ``cycles`` and keeps the remainder in ``rest``;
+here the three are unstacked, in that order, into the ``layers`` list.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.transformer import (MAX_LEARNED_POS, layer_plan,
+                                            stack_kinds)
 
 
 def _to_torch(x, device: torch.device):
@@ -45,13 +53,16 @@ def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     """The JAX ``init_params`` tree, as numpy arrays, -> the port's params.
 
     ``tree`` is e.g. ``jax.tree.map(np.asarray, params)``: ``embed``,
-    ``final_norm``, ``lm_head`` unless tied, and the layer stack as
+    ``final_norm``, ``lm_head`` unless tied, ``pos_embed`` (learned
+    positions) and ``mask_embed`` (encoders) where the config has them,
+    and the layer stack as
     ``prefix`` (tuple) + ``cycles`` (dict of ``l<j>`` layers stacked on a
     leading cycle axis, or None) + ``rest`` (tuple).
     """
     device = resolve_device(device)
     out: Dict[str, Any] = {k: _to_torch(tree[k], device)
-                           for k in ("embed", "final_norm", "lm_head")
+                           for k in ("embed", "final_norm", "lm_head",
+                                     "pos_embed", "mask_embed")
                            if k in tree}
     layers: List[dict] = [_to_torch(lp, device) for lp in tree["prefix"]]
     cycles = tree["cycles"]
@@ -109,50 +120,80 @@ def _ssm_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Random weights for a dense RoPE decoder or a Mamba2 stack, drawn
-    from the same distributions as the JAX ``init_params`` (not the same
-    numbers: the two frameworks' generators differ).  ``generator`` must
-    live on ``device``."""
+    """Random weights for any config of the zoo, drawn from the same
+    distributions as the JAX ``init_params`` (not the same numbers: the
+    two frameworks' generators differ).  ``generator`` must live on
+    ``device``."""
     device = resolve_device(device)
-    kinds = set(cfg.layer_kinds())
-    dense_rope = kinds == {"attn"} and cfg.rope_theta > 0 \
-        and not cfg.is_encoder
-    if cfg.num_experts or cfg.first_layer_dense \
-            or not (dense_rope or kinds == {"ssm"}):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense RoPE decoders and Mamba2 stacks are "
-            f"ported; the rest of the model zoo arrives with the model-zoo "
-            f"slice (ROADMAP Queue 1 item 9)")
     d = cfg.d_model
 
-    def dense(shape, fan_in):
-        return _dense(shape, fan_in, generator, device, dtype)
+    def dense(shape, fan_in, dt=dtype):
+        return _dense(shape, fan_in, generator, device, dt)
 
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    params: Dict[str, Any] = {
-        "embed": _embed((cfg.vocab_size, d), generator, device, dtype),
-        "final_norm": zeros((d,)),
-    }
+    def embed(shape):
+        return _embed(shape, generator, device, dtype)
+
+    def mlp(ff):
+        """``models/mlp.py::init_mlp``."""
+        wi = (d, 2, ff) if cfg.mlp_kind == "swiglu" else (d, ff)
+        return {"wi": dense(wi, d), "wo": dense((ff, d), ff)}
+
+    def attention():
+        """``models/attention.py::init_attention``."""
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        p = {"wq": dense((d, H, hd), d), "wk": dense((d, K, hd), d),
+             "wv": dense((d, K, hd), d), "wo": dense((H, hd, d), H * hd)}
+        if cfg.qkv_bias:
+            p.update(bq=zeros((H, hd)), bk=zeros((K, hd)), bv=zeros((K, hd)))
+        return p
+
+    def rglru():
+        """``models/rglru.py::init_rglru``."""
+        w = cfg.rglru_width or d
+        return {"w_x": dense((d, w), d), "w_gate": dense((d, w), d),
+                "conv": dense((4, w), 4), "w_a": dense((w, w), w),
+                "w_i": dense((w, w), w),
+                "lam": torch.full((w,), 0.65, dtype=torch.float32,
+                                  device=device),
+                "w_out": dense((w, d), w)}
+
+    def moe():
+        """``models/moe.py::init_moe``: the router stays fp32."""
+        ff, E = cfg.d_ff, cfg.num_experts
+        wi = (E, d, 2, ff) if cfg.mlp_kind == "swiglu" else (E, d, ff)
+        p = {"router": dense((d, E), d, torch.float32), "wi": dense(wi, d),
+             "wo": dense((E, ff, d), ff)}
+        if cfg.num_shared_experts:
+            p["shared"] = mlp(cfg.num_shared_experts * ff)
+        return p
+
+    def layer(kind: str, dense_mlp: bool = False) -> dict:
+        """``models/transformer.py::_init_layer``."""
+        if kind == "ssm":
+            return _ssm_layer(cfg, dense, zeros, device)
+        p: Dict[str, Any] = {"ln1": zeros((d,))}
+        p["attn" if kind == "attn" else "rec"] = (
+            attention() if kind == "attn" else rglru())
+        p["ln2"] = zeros((d,))
+        if cfg.num_experts and not dense_mlp:
+            p["moe"] = moe()
+        else:
+            p["mlp"] = mlp(cfg.dense_d_ff if (dense_mlp and cfg.dense_d_ff)
+                           else (cfg.d_ff if cfg.d_ff else 4 * d))
+        return p
+
+    params: Dict[str, Any] = {"embed": embed((cfg.vocab_size, d)),
+                              "final_norm": zeros((d,))}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab_size), d)
-    if kinds == {"ssm"}:
-        params["layers"] = [_ssm_layer(cfg, dense, zeros, device)
-                            for _ in range(cfg.num_layers)]
-        return params
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    ff = cfg.d_ff if cfg.d_ff else 4 * d
-    layers = []
-    for _ in range(cfg.num_layers):
-        attn = {"wq": dense((d, H, hd), d), "wk": dense((d, K, hd), d),
-                "wv": dense((d, K, hd), d), "wo": dense((H, hd, d), H * hd)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros((H, hd)), bk=zeros((K, hd)),
-                        bv=zeros((K, hd)))
-        wi_shape = (d, 2, ff) if cfg.mlp_kind == "swiglu" else (d, ff)
-        layers.append({"ln1": zeros((d,)), "attn": attn, "ln2": zeros((d,)),
-                       "mlp": {"wi": dense(wi_shape, d),
-                               "wo": dense((ff, d), ff)}})
-    params["layers"] = layers
+    if cfg.rope_theta <= 0:
+        params["pos_embed"] = embed((MAX_LEARNED_POS, d))
+    if cfg.is_encoder:
+        params["mask_embed"] = embed((d,))
+    n_prefix = layer_plan(cfg)[0]
+    params["layers"] = [layer(kind, dense_mlp=i < n_prefix)
+                        for i, kind in enumerate(stack_kinds(cfg))]
     return params

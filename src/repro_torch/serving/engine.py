@@ -74,7 +74,7 @@ from repro_torch.core.fetch_controller import (ActiveFetch, FetchController,
 from repro_torch.core.layout import IntraLayout
 from repro_torch.core.scheduler import FetchingAwareScheduler, Request
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import attend
+from repro_torch.models.attention import _project_qkv, attend
 from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import lm_logits
 from repro_torch.paged.cache import PagedKVCache
@@ -528,7 +528,7 @@ class LiveEngine:
             self._await_layer(req, i)
             lp = layer_params(self.params, cfg, i)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = paged_model._qkv(lp["attn"], h, cfg, positions)
+            q, k, v = _project_qkv(lp["attn"], h, cfg, positions)
             self.cache.write_prefill(i, req.rid, k[0], v[0],
                                      start_pos=n_pre)
             pk = self.cache.layer_rows(self.cache.k_pages, i)[rows][None]

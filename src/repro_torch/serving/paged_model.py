@@ -1,5 +1,6 @@
-"""Paged-cache model paths for the live serving engine (dense GQA archs:
-the paper's model class, LWM/Yi/Llama families).
+"""Paged-cache model paths for the live serving engine (decoders whose
+layers are all attention: the paper's dense GQA class, LWM/Yi/Llama
+families, and the MoE decoders).
 
 ``prefill_collect_kv`` runs the prompt and hands back per-layer K/V so the
 engine can scatter them into pages; ``decode_paged`` runs one token per
@@ -16,28 +17,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.attention import attend
-from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.attention import _project_qkv, attend
+from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import lm_logits
 from repro_torch.paged.cache import PagedKVCache
 from repro_torch.params import layer_params
 
 
-def _qkv(p, h, cfg: ModelConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
 def _mlp_out(lp, h2, cfg: ModelConfig):
+    """The layer's MLP.  An MoE layer routes each sequence of ``h2``
+    [b, s, d] as one group: a decode step's [b, 1, d] is b groups of one
+    token, as in the JAX package (whose ``decode_step`` routes the batch
+    as one group)."""
     if "moe" in lp:
-        raise NotImplementedError(
-            "MoE layers arrive with the model-zoo slice of the port")
+        out, _ = moe_mod.apply_moe(lp["moe"], h2, cfg)
+        return out
     return mlp_mod.apply_mlp(lp["mlp"], h2, cfg.mlp_kind)
 
 
@@ -56,7 +51,7 @@ def prefill_collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
     for i in range(cfg.num_layers):
         lp = layer_params(params, cfg, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(lp["attn"], h, cfg, positions)
+        q, k, v = _project_qkv(lp["attn"], h, cfg, positions)
         kvs.append((k, v))
         out = attend(q, k, v, positions, positions, causal=True,
                      window=cfg.sliding_window)
@@ -104,7 +99,7 @@ def decode_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = layer_params(params, cfg, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(lp["attn"], h, cfg, pos2)
+        q, k, v = _project_qkv(lp["attn"], h, cfg, pos2)
         cache.write_rows(i, slots, k[:, 0], v[:, 0])
         out = paged_attention(q[:, 0].contiguous(), cache.k_pages[i],
                               cache.v_pages[i], bt, context_lens)

@@ -661,3 +661,87 @@ def test_live_fleet_on_the_card_matches_the_cpu(cuda):
                                                  prefixes, suffix, kvs)
     assert cpu_launches == 0 and card_launches == chunks > 0
     assert card_log == cpu_log
+
+
+@pytest.mark.parametrize("G", [3, 1])
+def test_kv_restore_layers_at_deepseek_shapes(cuda, G):
+    """deepseek-moe-16b's fetched chunk: 16 tokens, H 16, D 128, in a group
+    of 3 layers and in its one-layer remainder group."""
+    slots = [5, 0, -1, 9, 17, -1, 4, 30, 31, 2, -1, 11, 12, 13, 1, 3]
+    pages, layers, q, scales, sl = _layers_case(
+        G, 16, 16, 128, 28, 32, torch.float32, slots, 10 + G, cuda)
+    want = kv_restore_layers_ref(pages.clone(), layers, q, scales, sl)
+    before = kv_ops.launches
+    got = kv_ops.kv_restore_layers(pages, layers, q, scales, sl)
+    torch.cuda.synchronize()
+    assert kv_ops.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_paged_attention_at_deepseek_shapes(cuda):
+    """deepseek-moe-16b's decode step: three sequences at context 543,
+    H = K = 16 heads of dim 128, block tables 34 pages wide."""
+    q, kp, vp, bt, cl = _paged_case(16, 16, 128, 16, [543] * 3, 34, 9, cuda)
+    bt = torch.from_numpy(bt).to(cuda)
+    want = paged_attention_ref(q, kp, vp, bt, cl)
+    before = pa_ops.launches
+    got = pa_ops.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert pa_ops.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_moe_on_the_card_matches_the_cpu(cuda):
+    """deepseek's routing (64 experts, top 6, 2 shared, capacity factor
+    1.25) at a narrow width: the same experts chosen on both devices, in
+    both grouping forms, and the outputs within 1e-5."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(
+        reduce_config(get_config("deepseek-moe-16b")), num_experts=64,
+        experts_per_token=6, num_shared_experts=2, moe_capacity_factor=1.25,
+        d_model=64, d_ff=32)
+    p = init_params(dataclasses.replace(cfg, num_layers=2),
+                    torch.Generator().manual_seed(0),
+                    device="cpu")["layers"][1]["moe"]
+    x = torch.randn(3, 16, 64, generator=torch.Generator().manual_seed(1))
+    for xs in (x, x[:, :1], x[:1]):  # prefill, paged decode, suffix group
+        _, _, tope = moe.route(p, xs, cfg)
+        _, _, tope_d = moe.route(_to(p, cuda), xs.to(cuda), cfg)
+        assert torch.equal(tope, tope_d.cpu())
+        out, aux = moe.apply_moe(p, xs, cfg)
+        out_d, aux_d = moe.apply_moe(_to(p, cuda), xs.to(cuda), cfg)
+        assert (out_d.cpu() - out).abs().max().item() <= 1e-5
+        assert abs(float(aux_d) - float(aux)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "recurrentgemma-9b"])
+def test_ring_cache_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """A 72-token prompt overflows the reduced 64-token window: the ring
+    cache's prefill and decode on the card against the CPU."""
+    cfg = reduce_config(get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 76)))
+    outs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        cache = tf.init_cache(cfg, 2, 76, device=dev)
+        logits, cache = tf.prefill(p, cfg, tokens=toks[:, :72].to(dev),
+                                   cache=cache)
+        steps = [logits[:, 0]]
+        for i in range(72, 76):
+            logits, cache = tf.decode_step(p, cfg, toks[:, i].to(dev), i,
+                                           cache)
+            steps.append(logits)
+        outs.append(torch.stack(steps).cpu())
+    scale = outs[0].abs().max().item()
+    assert (outs[1] - outs[0]).abs().max().item() <= 2e-4 * scale

@@ -336,3 +336,53 @@ def test_entry_points_raise_without_a_card_unless_told_cpu(tiny_cfg,
         PagedKVCache(tiny_cfg, n_pages=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(tiny_cfg, torch.Generator())
+
+
+#: (arch, layers, prefix length, suffix length) of the MoE engine twins:
+#: deepseek with its dense first layer and a one-layer remainder group
+#: (4 layers: groups of 3 and 1), mixtral with prompts past its reduced
+#: 64-token window
+MOE_ENGINES = [("deepseek-moe-16b", 4, 48, 8), ("mixtral-8x22b", 2, 64, 16)]
+
+
+@pytest.mark.parametrize("arch,layers,n_pre,n_suf", MOE_ENGINES)
+def test_moe_engine_matches_jax(arch, layers, n_pre, n_suf):
+    """Reduced MoE models served by the port's engine and the JAX one from
+    the same weights and donor KV: a reuse request (its suffix routes as
+    one group, whose capacity drops choices at full width), a plain one
+    and a second reuse request, batched in decode."""
+    from repro import configs as jax_configs
+    from repro.models import transformer as jax_tf
+
+    from repro_torch import configs
+
+    cfg = configs.reduce_config(configs.get_config(arch), num_layers=layers)
+    jcfg = jax_configs.reduce_config(jax_configs.get_config(arch),
+                                     num_layers=layers)
+    jp = jax_tf.init_params(jcfg, jax.random.PRNGKey(4))
+    params = from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab_size, n_pre)
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
+    ours, ref = KVStore(), JaxKVStore()
+    for store in (ours, ref):
+        man = store.register_prefix(prefix, kv_k, kv_v, **STORE_KW)
+    if arch == "deepseek-moe-16b":
+        assert [len(g) for g in man.layer_groups] == [3, 1]
+    reuse = dict(reuse_prefix=prefix_key(prefix), reuse_tokens=n_pre,
+                 max_new_tokens=4)
+    submits = [
+        (np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n_suf)]),
+         reuse),
+        (rng.integers(0, cfg.vocab_size, n_pre + n_suf),
+         dict(max_new_tokens=4)),
+        (np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n_suf)]),
+         reuse),
+    ]
+    eng = LiveEngine(params, cfg, ours, max_running=4, device="cpu")
+    got = _serve(eng, submits)
+    jax_eng = JaxLiveEngine(jp, jcfg, ref, max_running=4)
+    assert got == _serve(jax_eng, submits)
+    assert eng.stats.restored_tokens == jax_eng.stats.restored_tokens \
+        == 2 * 2 * len(man.layer_groups) * n_pre
+    assert eng.stats.fetched_bytes == jax_eng.stats.fetched_bytes > 0

@@ -90,3 +90,32 @@ def test_command_line_live(capsys):
     serve.main(["--live", "--reduced", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "streamed 4 tokens" in out and out.rstrip().endswith("OK")
+
+
+def test_command_line_live_moe(capsys):
+    """``--live`` serves a reduced MoE decoder; an encoder is refused."""
+    serve.main(["--live", "--reduced", "--arch", "deepseek-moe-16b",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.startswith("deepseek-moe-16b-smoke: random weights")
+    assert "streamed 4 tokens" in out and out.rstrip().endswith("OK")
+    with pytest.raises(SystemExit):
+        serve.main(["--live", "--reduced", "--arch", "hubert-xlarge",
+                    "--device", "cpu"])
+    assert "all attention" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-9b"])
+def test_command_line_simulate_zoo(arch, capsys, monkeypatch):
+    """``--simulate`` takes every registered arch, as the JAX launcher
+    does, and prints what it prints."""
+    from repro.launch import serve as jax_serve
+
+    argv = ["--simulate", "--arch", arch, "--context", "30000",
+            "--requests", "2"]
+    serve.main(argv)
+    got = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["serve.py"] + argv)
+    jax_serve.main()
+    assert got == capsys.readouterr().out
+    assert "ttft_mean" in got

@@ -1,6 +1,7 @@
-"""The port's model zoo entry points (Mamba2 so far): configs, weights,
+"""The port's model zoo entry points for Mamba2: configs, weights,
 ``forward_full``, ``prefill`` and ``decode_step`` of the reduced
-mamba2-2.7b held against the JAX package at fp32 on the CPU."""
+mamba2-2.7b held against the JAX package at fp32 on the CPU (the other
+archs: tests/test_torch_zoo_archs.py)."""
 import dataclasses
 
 import jax
@@ -86,28 +87,6 @@ def test_init_params_mamba2_shapes_and_distributions(params):
             np.testing.assert_array_equal(leaf, want)
         else:
             assert np.isclose(leaf.std(), want.std(), rtol=0.1), path
-
-
-@pytest.mark.parametrize("pattern,experts", [
-    (("attn", "rglru"), 0), (("rglru",), 0), (("attn", "ssm"), 0),
-    (("attn",), 4)])
-def test_init_params_raises_for_later_slices(pattern, experts):
-    cfg = dataclasses.replace(reduce_config(get_config("lwm-7b")),
-                              layer_pattern=pattern, num_experts=experts,
-                              experts_per_token=2 if experts else 0,
-                              ssm_state=16)
-    with pytest.raises(NotImplementedError, match="model-zoo slice"):
-        init_params(cfg, torch.Generator(), device="cpu")
-
-
-def test_attention_layers_of_the_zoo_raise():
-    cfg = reduce_config(get_config("lwm-7b"))
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    toks = torch.from_numpy(_tokens(0, (1, 8)) % cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="model-zoo slice"):
-        tf.forward_full(params, cfg, tokens=toks)
-    with pytest.raises(NotImplementedError, match="model-zoo slice"):
-        tf.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_init_cache_matches_jax(monkeypatch):
