@@ -109,6 +109,14 @@ JAX or of the JAX package.  Phases:
    (the larger of its bytes and its 3xTF32 tensor-core operations, with
    the fp32 SIMT figure beside it), with phase 1's count of two kernels
    per op call;
+8b. backward: ``ssd_scan_bwd`` (the backward kernel, two launches: the
+   sweeps over the pieces' states, then one block per piece and head;
+   then two PyTorch sums over a group's heads) against its plain version ``ssd_scan_bwd_ref`` and against
+   ``torch.autograd`` through ``ssd_scan_ref`` on the card, from a seeded
+   dy and a non-zero dstate at s 2048, 40 and 2064 (padded): dxdt,
+   da_log, dBm and dCm each within 2e-4 of its largest magnitude; timed
+   in a CUDA graph beside its bound (fp32 SIMT operations) and the
+   forward's time;
 9. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
    prefix; its recurrent state is snapshotted, encoded on the host,
    decoded, rebuilt on the card bit for bit, and two reuse requests
@@ -120,6 +128,19 @@ JAX or of the JAX package.  Phases:
    largest logit; the reuse-versus-exact-cache logit error is reported;
 10. reference: the same snapshot path at a reduced size on the card
    (kernel) and on the CPU (plain version) must generate the same tokens;
+10b. training: mamba2-2.7b at full width from ``training.steps.
+   init_state`` (a seeded ``torch.Generator``; 2,830,951,936 fp32
+   parameters, 42.18 GiB with gradients and AdamW's two moments), 4 steps
+   of ``make_train_step`` (AdamW, cosine schedule, ``remat=True``) at
+   b 1, s 2048 on ``data.pipeline.batches``.  Per step the counts are set
+   to 0 just before and read just after: ``ssd_scan`` 128 (each layer's
+   forward and its recompute), its backward 64.  Each loss and grad norm
+   must be finite, step 0's loss within 1 of ln 50280, and every
+   parameter leaf must have changed.  Logged: the median step time over
+   steps 1-3, tokens/s, MFU (``roofline.analysis.model_flops`` over the
+   step time at 67 TFLOP/s fp32, TF32 being off), peak memory, and one
+   profiled step's device busy and idle share.  Then every training
+   tensor is freed: less than 1 GiB may stay allocated;
 11. MoE set-up: mamba2-2.7b's weights are freed, then deepseek-moe-16b at
    full width (28 layers, d 2048, 16 heads (MHA) of dim 128, a dense
    first layer of ff 10944, 27 MoE layers of 64 routed experts of ff 1408
@@ -152,7 +173,12 @@ JAX or of the JAX package.  Phases:
    CPU (logits within 2e-4 of the largest, aux within 1e-5) and, for the
    decoders, ``prefill`` of a 72-token prompt (past the reduced 64-token
    windows) and 4 ``decode_step``; an argmax or a top-k routing choice
-   that differs is logged with its margin.
+   that differs is logged with its margin;
+14b. reference: one ``make_train_step`` of each of the ten reduced
+   ``ASSIGNED_ARCHS`` from weights drawn on the CPU and the same batch,
+   on the card and on the CPU: loss and grad norm within 2e-4 relative,
+   the updated parameters within 5e-3 (lr 1e-3); reduced mamba2 trains
+   through ``ssd_scan`` and its backward kernel.
 
 TF32 is switched off for matrix products and convolutions, so every fp32
 product runs in full fp32.  Any failed check raises and the script exits
@@ -161,6 +187,7 @@ and power limit, and the result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -189,7 +216,7 @@ from repro_torch.cluster.staging import (  # noqa: E402
 from repro_torch.cluster.storage import (  # noqa: E402
     KVStore, StorageCluster, StorageNode, StoredPrefix)
 from repro_torch.configs import (  # noqa: E402
-    ASSIGNED_ARCHS, get_config, reduce_config)
+    ASSIGNED_ARCHS, InputShape, get_config, reduce_config)
 from repro_torch.core.chunks import (  # noqa: E402
     decode_chunk_tokens, decode_state_snapshot, encode_prefix,
     encode_state_snapshot, prefix_key)
@@ -199,6 +226,7 @@ from repro_torch.core.layout import (  # noqa: E402
     IntraLayout, frame_geometry, pack_frames)
 from repro_torch.core.prediction import UNZIGZAG, ZIGZAG  # noqa: E402
 from repro_torch.core.scheduler import Request  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batches  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
@@ -208,7 +236,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    piece_len, ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_decode_frame_ref, token_delta_decode_frames_ref,
@@ -217,8 +246,14 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
+from repro_torch.roofline.analysis import model_flops  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    AdamW, constant_schedule, cosine_schedule)
+from repro_torch.training.steps import (  # noqa: E402
+    TrainState, init_state, make_train_step)
+from repro_torch.tree import flatten, leaves, tree_map  # noqa: E402
 
 SEED = 0
 PREFIX_TOKENS = 512
@@ -235,6 +270,11 @@ MAMBA_PREFIX = 2048
 SCAN_CHUNK = 64               # apply_ssm_full's chunk
 SCAN_TOL = 2e-4               # of the largest |y| or |state|
 LOGIT_TOL = 2e-4              # of the largest |logit|
+TRAIN_STEPS = 4               # phase 10b: full-width mamba2-2.7b steps
+MAMBA_PARAMS = 2_830_951_936  # its leaves (param_count(): 2,830,442,496)
+TRAIN_LR = 3e-4
+TRAIN_TOL = 2e-4              # phase 14b: loss and grad norm, relative
+PARAM_ATOL = 5e-3             # phase 14b: updated params at lr 1e-3
 BIG_STACK = (64, 1080, 1920)  # a bandwidth-sized uint8 stack, 133 MB
 PLANE_STACK = (40, 128, 416)  # group 0's 240p plane stack of the prefix
 ODD_STACK = (5, 5, 77)        # H*W not a multiple of 16
@@ -405,6 +445,11 @@ def count_kernels_child() -> int:
                        mamba.ssm_head_dim, mamba.ssm_ngroups, mamba.ssm_state,
                        SEED + 6)
     calls["ssd_scan"] = lambda: ssd_ops.ssd_scan(*scan, chunk=SCAN_CHUNK)
+    dy = torch.randn(scan[0].shape, device=dev, generator=g)
+    dstate = torch.randn(1, mamba.ssm_nheads, mamba.ssm_head_dim,
+                         mamba.ssm_state, device=dev, generator=g)
+    calls["ssd_scan_bwd"] = lambda: ssd_ops.ssd_scan_bwd(
+        *scan, dy, dstate, chunk=SCAN_CHUNK)
     video = torch.randint(0, 256, PLANE_STACK, device=dev, generator=g,
                           dtype=torch.uint8)
     zero = torch.zeros_like(video[0])
@@ -456,10 +501,11 @@ def kernel_counts() -> dict:
     counts = json.loads(out.stdout.strip().splitlines()[-1])
     for name, c in counts.items():
         # what the sources launch: kv_restore one kernel, ssd_scan C.B^T
-        # then the scan, the token-delta ops one kernel per stack,
-        # paged_attention its split kernel and, when it splits the pages,
-        # the merge
-        want = {"ssd_scan": 2, "token_delta_encode": 1,
+        # then the scan, its backward the sweeps and the pieces (and two
+        # PyTorch sums of dB and dC over a group's heads), the
+        # token-delta ops one kernel per stack, paged_attention its split
+        # kernel and, when it splits the pages, the merge
+        want = {"ssd_scan": 2, "ssd_scan_bwd": 4, "token_delta_encode": 1,
                 "token_delta_decode_frames": 1}.get(
             name, 1 if name.startswith("kv_restore") or c["splits"] == 1
             else 2)
@@ -1778,6 +1824,82 @@ def ssd_scan_phase(dev, cfg, n_kernels: int):
                 bound_by=b_by, library_ms=None)
 
 
+# -- phase 8b: ssd_scan's backward against its plain version -----------------
+
+def scan_bwd_bound(b, s, nh, hd, G, S, Q):
+    """(ms, "bytes" | "operations") of one backward, fp32 SIMT: x, a, B,
+    C, dy and dstate read once, dx, da, dB and dC written once; the
+    products the chunked gradient needs per piece of P steps
+    (``ssd_scan.cu``): C.B^T once per group, and per head dY.X^T, M^T.dY,
+    W.B and W^T.C over the lower triangle, and the five [P, hd] x [hd, S]
+    products (the two sweeps, dY.h0, X.dH, B.dH^T)."""
+    P = piece_len(min(Q, s))
+    c = -(-s // P)
+    tri = P * (P + 1) // 2
+    n_bytes = 4 * (3 * b * s * nh * hd + 2 * b * s * nh + 4 * b * s * G * S
+                   + b * nh * hd * S)
+    n_flops = 2 * b * c * (G * tri * S + nh * (2 * tri * hd + 2 * tri * S
+                                               + 5 * P * hd * S))
+    return bound(n_bytes, n_flops)
+
+
+def ssd_scan_bwd_phase(dev, cfg, n_kernels: int, fwd_ms: float):
+    """The backward kernel against ``ssd_scan_bwd_ref`` and against
+    ``torch.autograd`` through ``ssd_scan_ref``, on the card, from a seeded
+    dy and a non-zero dstate: each gradient within 2e-4 of its largest
+    magnitude; timed in a CUDA graph beside its bound and the forward."""
+    nh, hd, G, S = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                    cfg.ssm_state)
+    err = 0.0
+    timed = None
+    for s in (MAMBA_PREFIX, 40, MAMBA_PREFIX + SUFFIX_TOKENS):
+        args = scan_inputs(dev, 1, s, nh, hd, G, S, s + 7)
+        g = torch.Generator(device=dev).manual_seed(s + 8)
+        dy = torch.randn(1, s, nh, hd, device=dev, generator=g)
+        dstate = torch.randn(1, nh, hd, S, device=dev, generator=g)
+        got = ssd_ops.ssd_scan_bwd(*args, dy, dstate, chunk=SCAN_CHUNK)
+        want = ssd_scan_bwd_ref(*args, dy, dstate, chunk=SCAN_CHUNK)
+        req = [t.clone().requires_grad_() for t in args]
+        auto = torch.autograd.grad(ssd_scan_ref(*req, chunk=SCAN_CHUNK), req,
+                                   (dy, dstate))
+        torch.cuda.synchronize()
+        for name, a, plain, ag in zip(("dxdt", "da_log", "dBm", "dCm"), got,
+                                      want, auto):
+            errs = []
+            for what, ref in (("plain", plain), ("autograd", ag)):
+                e = (a - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                check(a.shape == ref.shape and e <= SCAN_TOL * scale,
+                      f"ssd_scan_bwd s={s}: {name} off the {what} version "
+                      f"by {e} (largest {scale})")
+                errs.append(f"{e:.3g} vs {what}")
+            err = max(err, (a - plain).abs().max().item())
+            log(f"[kernel] ssd_scan_bwd s={s} nh={nh} hd={hd} G={G} S={S} "
+                f"chunk={SCAN_CHUNK}: {name} max_abs_err {', '.join(errs)} "
+                f"of largest {plain.abs().max().item():.3g}")
+        if s == MAMBA_PREFIX:
+            timed = (*args, dy, dstate)
+        del got, want, auto, req
+    ms = graph_ms(lambda: ssd_ops.ssd_scan_bwd(*timed, chunk=SCAN_CHUNK),
+                  iters=20)
+    eager_ms = time_ms(lambda: ssd_ops.ssd_scan_bwd(*timed, chunk=SCAN_CHUNK),
+                       iters=20)
+    plain_ms = graph_ms(lambda: ssd_scan_bwd_ref(*timed, chunk=SCAN_CHUNK),
+                        iters=5)
+    b_ms, b_by = scan_bwd_bound(1, MAMBA_PREFIX, nh, hd, G, S, SCAN_CHUNK)
+    log(f"[kernel] ssd_scan_bwd s={MAMBA_PREFIX}: {n_kernels} CUDA kernels "
+        f"per op call (sweeps, pieces, two sums); device {ms * 1e3:.2f} "
+        f"us/call (eager call {eager_ms * 1e3:.2f} us; the forward "
+        f"{fwd_ms * 1e3:.2f} us; plain version {plain_ms * 1e3:.2f} us; no "
+        f"single PyTorch call computes it; bound {b_ms * 1e3:.2f} us by "
+        f"{b_by} in fp32 SIMT at 67 TFLOP/s)")
+    return dict(name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+                replaces="src/repro/models/ssm.py:99",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # -- phase 9: the Mamba2 path -------------------------------------------------
 
 def generate(params, cfg, logits, cache, pos: int, n: int):
@@ -1942,6 +2064,89 @@ def small_mamba_reference(dev) -> None:
         f"{outs[1]}")
 
 
+# -- phase 10b: mamba2-2.7b trained at full width -----------------------------
+
+def check_all_changed(params, before) -> None:
+    """Every leaf of ``params`` differs from its copy in ``before``."""
+    for (path, now), old in zip(flatten(params), before):
+        check(not torch.equal(now, old.to(now.device)),
+              f"{path} did not change")
+
+
+def train_path(dev) -> dict:
+    """``TRAIN_STEPS`` steps of ``make_train_step`` (AdamW with a cosine
+    schedule, remat) on mamba2-2.7b at full width, b 1, s 2048, from
+    ``init_state`` and ``data.pipeline.batches``.  Each step's counts are
+    set to 0 just before it and read just after: ``ssd_scan`` 2 per layer
+    (the forward and its recompute), its backward 1 per layer.  Returns
+    the launches of all steps; frees every training tensor."""
+    cfg = get_config("mamba2-2.7b")
+    L = cfg.num_layers
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, warmup=1, total=TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(
+        SEED + 7), dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(state.params))
+    check(n == MAMBA_PARAMS, f"{n} parameters, not {MAMBA_PARAMS}")
+    log(f"[train] mamba2-2.7b full width: {n} fp32 parameters, AdamW state "
+        f"{4 * n * 3 / 2**30:.2f} GiB with the parameters (+ "
+        f"{4 * n / 2**30:.2f} GiB of gradients in a step); init "
+        f"{time.perf_counter() - t0:.2f} s")
+    before = [t.to("cpu", copy=True) for t in leaves(state.params)]
+    step_fn = make_train_step(cfg, opt, remat=True)
+    data = batches(cfg, DataConfig(batch_size=1, seq_len=MAMBA_PREFIX,
+                                   seed=SEED))
+    step_ms, total = [], {"ssd_scan": 0, "ssd_scan_bwd": 0}
+    batch = None
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        ssd_ops.launches = ssd_ops.bwd_launches = 0
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        fwd, bwd = ssd_ops.launches, ssd_ops.bwd_launches
+        total["ssd_scan"] += fwd
+        total["ssd_scan_bwd"] += bwd
+        log(f"[train] step {i}: loss {loss:.5f} grad_norm {gnorm:.5f} "
+            f"lr {float(opt.lr(state.opt.count)):.3g}; {step_ms[-1]:.1f} ms; "
+            f"ssd_scan {fwd} launches, backward {bwd}")
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"step {i}: loss {loss}, grad_norm {gnorm}")
+        check(fwd == 2 * L and bwd == L,
+              f"step {i}: ssd_scan {fwd} and backward {bwd} launches, the "
+              f"path's {2 * L} and {L}")
+        if i == 0:
+            check(abs(loss - np.log(cfg.vocab_size)) <= 1.0,
+                  f"step 0 loss {loss}, not within 1 of ln "
+                  f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.3f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(int(state.step) == TRAIN_STEPS, "steps not counted")
+    check_all_changed(state.params, before)
+    del before
+    med = statistics.median(step_ms[1:])
+    flops = model_flops(cfg, InputShape("train", MAMBA_PREFIX, 1, "train"))
+    log(f"[train] {TRAIN_STEPS} steps, every parameter leaf changed; step "
+        f"time median {med:.1f} ms over steps 1-{TRAIN_STEPS - 1} (step 0 "
+        f"{step_ms[0]:.1f} ms); {MAMBA_PREFIX / med * 1e3:.1f} tokens/s; "
+        f"model FLOPs {flops / 1e12:.2f} TFLOP per step, MFU "
+        f"{flops / (med / 1e3) / FP32_FLOPS_PER_S:.4f} of 67 TFLOP/s fp32 "
+        f"(TF32 off); peak memory {peak:.2f} GiB")
+    profile_step(lambda: step_fn(state, batch), "one train step")
+    del state, step_fn, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"[train] freed: {left:.3f} GiB still allocated")
+    check(left < 1.0, f"{left:.2f} GiB still allocated after training")
+    return total
+
+
 # -- phases 11-13: deepseek-moe-16b at full width ----------------------------
 
 def moe_path(dev, cfg, params, store, man, prefix, prompts, plain, frames):
@@ -2079,6 +2284,55 @@ def zoo_reference(dev) -> None:
                f"differently" if routes else ""))
 
 
+# -- phase 14b: a train step of the reduced zoo, card against CPU ------------
+
+def zoo_train_reference(dev) -> None:
+    """One ``make_train_step`` of each of the ten assigned archs, reduced,
+    from weights drawn on the CPU and the same batch, on the card and on
+    the CPU: loss and grad norm within ``TRAIN_TOL`` relative, the updated
+    parameters within ``PARAM_ATOL`` (the envelope of Adam's sign flips
+    that tests/test_training.py allows at lr 1e-3); reduced mamba2 through
+    both of ``ssd_scan``'s kernels."""
+    opt = AdamW(lr=constant_schedule(1e-3))
+    for arch in ASSIGNED_ARCHS:
+        cfg = reduce_config(get_config(arch))
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        batch = {k: torch.as_tensor(v) for k, v in next(batches(
+            cfg, DataConfig(batch_size=2, seq_len=32, seed=SEED + 4))).items()}
+        out = []
+        for d in ("cpu", dev):
+            # a copy on each device: the step updates it in place
+            p = tree_map(lambda t: t.to(d, copy=True), params)
+            state = TrainState(p, opt.init(p),
+                               torch.zeros((), dtype=torch.int32, device=d))
+            ssd_ops.launches = ssd_ops.bwd_launches = 0
+            state, m = make_train_step(cfg, opt)(
+                state, {k: v.to(d) for k, v in batch.items()})
+            n = cfg.num_layers if d != "cpu" and arch == "mamba2-2.7b" else 0
+            check((ssd_ops.launches, ssd_ops.bwd_launches) == (2 * n, n),
+                  f"{arch} on {d}: ssd_scan {ssd_ops.launches} and backward "
+                  f"{ssd_ops.bwd_launches} launches, not {2 * n} and {n}")
+            out.append(({k: float(v) for k, v in m.items()},
+                        to_device(state.params, "cpu")))
+        (m0, p0), (m1, p1) = out
+        rel = {k: abs(m1[k] - m0[k]) / abs(m0[k]) for k in ("loss",
+                                                            "grad_norm")}
+        for k, r in rel.items():
+            check(r <= TRAIN_TOL, f"{arch}: {k} {m1[k]} on the card, "
+                  f"{m0[k]} on the CPU")
+        worst = max((a - b).abs().max().item()
+                    for (_, a), (_, b) in zip(flatten(p0), flatten(p1)))
+        check(worst <= PARAM_ATOL, f"{arch}: updated parameters differ by "
+              f"{worst}")
+        log(f"[zoo] reduced {arch} train step: card == CPU, loss "
+            f"{m1['loss']:.6f} (rel {rel['loss']:.3g}), grad_norm "
+            f"{m1['grad_norm']:.6f} (rel {rel['grad_norm']:.3g}); updated "
+            f"parameters within {worst:.3g}"
+            + ("; ssd_scan and its backward on the card"
+               if arch == "mamba2-2.7b" else ""))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA device")
@@ -2153,11 +2407,18 @@ def main() -> int:
 
     m_cfg, m_params, m_prefix, m_prompts = mamba_set_up(dev)
     rows.append(ssd_scan_phase(dev, m_cfg, counts["ssd_scan"]))
+    rows.append(ssd_scan_bwd_phase(dev, m_cfg, counts["ssd_scan_bwd"],
+                                   rows[-1]["ms"]))
     launches["ssd_scan"] = mamba_path(dev, m_cfg, m_params, m_prefix,
                                       m_prompts)
     del m_params
     torch.cuda.empty_cache()
     small_mamba_reference(dev)
+    t_phase = time.perf_counter()
+    trained = train_path(dev)
+    log(f"[train] phase 10b wall {time.perf_counter() - t_phase:.2f} s")
+    launches["ssd_scan"] += trained["ssd_scan"]
+    launches["ssd_scan_bwd"] = trained["ssd_scan_bwd"]
 
     # deepseek-moe-16b at full width: set-up, its kernel shapes, its path
     t_phase = time.perf_counter()
@@ -2195,6 +2456,7 @@ def main() -> int:
     log(f"[moe] phases 11-13 wall {time.perf_counter() - t_phase:.2f} s")
     small_engine(dev, DS_ARCH, num_layers=4)
     zoo_reference(dev)
+    zoo_train_reference(dev)
 
     n_pa = sum(per_shape.values())
     check(launches["paged_attention"] == n_pa,

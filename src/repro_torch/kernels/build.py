@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from typing import Dict, Iterable, List, Tuple
 
+import torch
+
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -101,3 +103,13 @@ def check(err: int, name: str) -> None:
         describe.restype = ctypes.c_char_p
         raise RuntimeError(
             f"{name}: CUDA error {err} ({describe(err).decode()})")
+
+
+def refuse_grad(op: str, *tensors) -> None:
+    """Raise if grad mode is on and a tensor bound for kernel ``op``
+    requires grad: the kernel has no backward, and its output would be
+    cut off from autograd without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no gradient; call it under "
+            f"torch.no_grad() or on tensors that do not require grad")

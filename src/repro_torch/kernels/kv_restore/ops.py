@@ -115,6 +115,7 @@ def kv_restore(pages: torch.Tensor, q_tokens: torch.Tensor,
     if _device_kind("kv_restore", pages) == "cpu":
         return kv_restore_ref(pages, q_tokens, scales, slots)
     _check("kv_restore", pages, q_tokens, scales, slots)
+    build.refuse_grad("kv_restore", pages, scales)
     if pages.dim() != 3 or q_tokens.dim() != 3 \
             or q_tokens.shape[1:] != pages.shape[1:] \
             or scales.shape != (pages.shape[1],) \
@@ -151,6 +152,7 @@ def kv_restore_layers(pages: torch.Tensor, layers: Sequence[int],
     if kind == "cpu":
         return kv_restore_layers_ref(pages, ids, q_tokens, scales, slots)
     _check("kv_restore_layers", pages, q_tokens, scales, slots)
+    build.refuse_grad("kv_restore_layers", pages, scales)
     G = len(ids)
     if q_tokens.dim() != 4 or q_tokens.shape[0] != G \
             or q_tokens.shape[2:] != pages.shape[2:] \

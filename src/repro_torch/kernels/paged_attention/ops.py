@@ -125,6 +125,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     _check(q, k_pages, v_pages, block_tables, context_lens)
+    build.refuse_grad("paged_attention", q, k_pages, v_pages)
     B, H, hd = q.shape
     P, ps, K, _ = k_pages.shape
     out = torch.empty_like(q)

@@ -1,9 +1,15 @@
 """Public Mamba2 chunked SSD scan op: the plain version on CPU tensors, the
-CUDA kernel (``ssd_scan.cu``) on CUDA tensors.
+CUDA kernel (``ssd_scan.cu``) on CUDA tensors, and its gradient.
 
 On the card one call is two launches (``ssd_scan.cu``): C.B^T of every
 chunk and group into fp32 scratch, then the scan over b * nh * slices
-blocks (``plan``); every product in 3xTF32 on the tensor cores."""
+blocks (``plan``); every product in 3xTF32 on the tensor cores.  When an
+input requires grad (and grad mode is on), the call goes through a
+``torch.autograd.Function`` whose backward is the backward kernel
+(``ssd_scan_bwd_f32``, two more launches: the sweeps over the pieces'
+states, then one block per piece and head) on the card and
+``ssd_scan_bwd_ref`` on the CPU.  Otherwise nothing is saved and the
+forward launches exactly as it does for serving."""
 from __future__ import annotations
 
 import ctypes
@@ -13,20 +19,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (piece_len, ssd_scan_bwd_ref,
+                                              ssd_scan_ref)
 
 #: op calls that went through the CUDA kernel so far; a run resets it to
 #: 0 and reads it back to show which of its calls used it
 launches = 0
+#: backward calls that went through the backward kernel so far
+bwd_launches = 0
 
 #: the kernel's limits: head_dim, state and chunk length each at most this
 MAX_DIM = 128
 #: shared memory one block may use on an H100 (bytes)
 MAX_SMEM = 232_448
-#: the longest piece of a chunk the kernel runs at once
-MAX_PIECE = 64
 
 _fn = None
+_bwd_fn = None
 
 
 def _launcher():
@@ -40,11 +48,22 @@ def _launcher():
     return _fn
 
 
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("ssd_scan").ssd_scan_bwd_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 12 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
 def plan(Q: int, hd: int) -> Tuple[int, int]:
-    """(piece, hd slices per head) of the kernel: a chunk longer than
-    MAX_PIECE runs as two halves, and head_dim is split in two (two
-    blocks per head) when it is a multiple of 16."""
-    return (Q if Q <= MAX_PIECE else -(-Q // 2)), (2 if hd % 16 == 0 else 1)
+    """(piece, hd slices per head) of the kernel: ``piece_len(Q)`` steps
+    run at once, and head_dim is split in two (two blocks per head) when
+    it is a multiple of 16."""
+    return piece_len(Q), (2 if hd % 16 == 0 else 1)
 
 
 def smem_bytes(Q: int, hd: int, S: int) -> int:
@@ -58,7 +77,17 @@ def smem_bytes(Q: int, hd: int, S: int) -> int:
                 + PP * (SP + 4) + 4 * QP)
 
 
-def _check(xdt, a_log, Bm, Cm, Q: int) -> None:
+def bwd_smem_bytes(Q: int, hd: int, S: int) -> int:
+    """Shared memory of one block of the backward's piece kernel
+    (``ssd_scan.cu``, ``bwd_smem_floats``), all fp32: X and dY [P, hd + 1],
+    B and C [P, S + 1], the state [hd, S + 1], three [P, P + 1] products,
+    five [P] vectors and nine partial sums, with P = ``piece_len(Q)``."""
+    P = piece_len(Q)
+    return 4 * (2 * P * (hd + 1) + 2 * P * (S + 1) + hd * (S + 1)
+                + 3 * P * (P + 1) + 5 * P + 9)
+
+
+def _check(xdt, a_log, Bm, Cm, Q: int, grad: bool = False) -> None:
     dev = xdt.device
     named = (("xdt", xdt), ("a_log", a_log), ("Bm", Bm), ("Cm", Cm))
     for name, t in named:
@@ -88,6 +117,10 @@ def _check(xdt, a_log, Bm, Cm, Q: int) -> None:
         raise ValueError(f"ssd_scan: chunk {Q}, head_dim {hd}, state {S} "
                          f"need {smem_bytes(Q, hd, S)} bytes of shared "
                          f"memory, more than {MAX_SMEM}")
+    if grad and bwd_smem_bytes(Q, hd, S) > MAX_SMEM:
+        raise ValueError(f"ssd_scan: the backward of chunk {Q}, head_dim "
+                         f"{hd}, state {S} needs {bwd_smem_bytes(Q, hd, S)} "
+                         f"bytes of shared memory, more than {MAX_SMEM}")
 
 
 def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
@@ -100,15 +133,43 @@ def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     fp32, final_state [b, nh, hd, S] fp32).  The chunk length is
     ``Q = min(chunk, s)``; on the card s is padded with zeros to a
     multiple of Q (a_log = 0, x = 0 leave the state intact) and y is
-    sliced back, as ``repro/kernels/ssd_scan/ops.py`` does.
+    sliced back, as ``repro/kernels/ssd_scan/ops.py`` does.  Both outputs
+    are differentiable when an input requires grad.
     """
+    args = (xdt, a_log, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Scan.apply(xdt, a_log, Bm, Cm, chunk)
+    return _forward(xdt, a_log, Bm, Cm, chunk)
+
+
+class _Scan(torch.autograd.Function):
+    """The scan with its gradient: the forward saves its (unpadded)
+    inputs; the backward runs the backward kernel on the card and
+    ``ssd_scan_bwd_ref`` on the CPU.  A final state that the loss does not
+    use reaches the backward as zeros (materialised grads)."""
+
+    @staticmethod
+    def forward(ctx, xdt, a_log, Bm, Cm, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(xdt, a_log, Bm, Cm)
+        return _forward(xdt, a_log, Bm, Cm, chunk, grad=True)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        grads = ssd_scan_bwd(*ctx.saved_tensors, dy, dstate,
+                             chunk=ctx.chunk)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
+def _forward(xdt, a_log, Bm, Cm, chunk: int, grad: bool = False):
     if xdt.device.type == "cpu":
         return ssd_scan_ref(xdt, a_log, Bm, Cm, chunk=chunk)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {xdt.device}")
     b, s = xdt.shape[:2]
     Q = min(chunk, s)
-    _check(xdt, a_log, Bm, Cm, Q)
+    _check(xdt, a_log, Bm, Cm, Q, grad=grad)
     nh, hd = xdt.shape[2], xdt.shape[3]
     G, S = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(xdt)
@@ -137,3 +198,60 @@ def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     global launches
     launches += 1
     return (y[:, :s] if pad else y), state
+
+
+def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor, *,
+                 chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor, torch.Tensor]:
+    """The scan's backward: (dxdt, da_log, dBm, dCm) from dy [b, s, nh,
+    hd] and dstate [b, nh, hd, S], shaped as the inputs.  The plain
+    version on CPU tensors, the backward kernel on CUDA tensors (the
+    inputs as ``ssd_scan`` checks them).  ``ssd_scan``'s gradient calls
+    it; it is public for the card's checks and timing."""
+    if xdt.device.type == "cpu":
+        return ssd_scan_bwd_ref(xdt, a_log, Bm, Cm, dy, dstate, chunk=chunk)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for {xdt.device}")
+    b, s, nh, hd = xdt.shape
+    _check(xdt, a_log, Bm, Cm, min(chunk, s), grad=True)
+    G, S = Bm.shape[2], Bm.shape[3]
+    dy, dstate = dy.contiguous(), dstate.contiguous()
+    for name, t, shape in (("dy", dy, xdt.shape),
+                           ("dstate", dstate, (b, nh, hd, S))):
+        if t.device != xdt.device or t.dtype != torch.float32 \
+                or t.shape != shape:
+            raise ValueError(f"ssd_scan backward: {name} {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, wants float32 "
+                             f"{tuple(shape)} on {xdt.device}")
+    if b == 0 or s == 0 or nh == 0:
+        return (torch.zeros_like(xdt), torch.zeros_like(a_log),
+                torch.zeros_like(Bm), torch.zeros_like(Cm))
+    P = piece_len(min(chunk, s))
+    pad = (-s) % P  # zeros, as the forward pads: they change no gradient
+    if pad:
+        xdt, dy, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (xdt, dy, Bm, Cm))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+    sp = s + pad
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    # the state entering and the adjoint leaving each piece
+    h0 = torch.empty(b, nh, sp // P, hd, S, **f32)
+    dh = torch.empty_like(h0)
+    dx = torch.empty(b, sp, nh, hd, **f32)
+    da = torch.empty(b, sp, nh, **f32)
+    dBh = torch.empty(b, sp, nh, S, **f32)  # each head's partial
+    dCh = torch.empty_like(dBh)
+    err = _bwd_launcher()(
+        xdt.data_ptr(), a_log.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dy.data_ptr(), dstate.data_ptr(), h0.data_ptr(), dh.data_ptr(),
+        dx.data_ptr(), da.data_ptr(), dBh.data_ptr(), dCh.data_ptr(), b, sp,
+        nh, hd, G, S, P, xdt.device.index,
+        torch.cuda.current_stream(xdt.device).cuda_stream)
+    build.check(err, "ssd_scan")
+    global bwd_launches
+    bwd_launches += 1
+    hpg = nh // G
+    return (dx[:, :s], da[:, :s],
+            dBh[:, :s].reshape(b, s, G, hpg, S).sum(3),
+            dCh[:, :s].reshape(b, s, G, hpg, S).sum(3))

@@ -3,8 +3,11 @@ of ``repro/models/ssm.py::ssd_chunked`` (the oracle of the TPU kernel).
 
 The arithmetic lives here once: ``repro_torch.models.ssm`` imports
 ``ssd_chunked`` from this module, never the other way round.  The 3xTF32
-helpers at the end emulate the CUDA kernel's tensor-core arithmetic for
-the tests; no path calls them.
+helpers emulate the CUDA kernel's tensor-core arithmetic for the tests;
+no path calls them.  ``ssd_scan_bwd_ref`` is the plain version of the
+backward kernel (``ssd_scan.cu``, ``ssd_scan_bwd_f32``), in its
+arithmetic.  fp32 and bf16 inputs are computed in fp32, as the JAX oracle
+computes them; fp64 inputs stay fp64 (for ``torch.autograd.gradcheck``).
 """
 from __future__ import annotations
 
@@ -51,8 +54,9 @@ def ssd_chunked(xh: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     c = s // q
 
     cdtype = xh.dtype
+    wt = torch.promote_types(cdtype, torch.float32)
     xc = xh.reshape(b, c, q, nh, hd)
-    ac = a_log.reshape(b, c, q, nh).to(torch.float32)
+    ac = a_log.reshape(b, c, q, nh).to(wt)
     Bc = Bm.reshape(b, c, q, G, S).to(cdtype)
     Cc = Cm.reshape(b, c, q, G, S).to(cdtype)
 
@@ -62,13 +66,13 @@ def ssd_chunked(xh: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     scores = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)  # [b,c,G,q,q]
     scores = torch.repeat_interleave(scores, hpg, dim=2)  # [b,c,nh,q,q]
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", L * scores,
-                          xc).to(torch.float32)
+                          xc).to(wt)
 
     # per-chunk end states: input at t decays by exp(sum_{t+1..end} a)
     decay_to_end = torch.exp(acs[:, :, -1:, :] - acs).to(cdtype)
     Bh = torch.repeat_interleave(Bc, hpg, dim=3)  # [b,c,q,nh,S]
     states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bh, decay_to_end,
-                          xc).to(torch.float32)
+                          xc).to(wt)
     y, final = _ssd_inter(y_diag, states, acs, Cc, xc, init_state, hpg)
     return y[:, :orig_s], final
 
@@ -77,10 +81,11 @@ def _ssd_inter(y_diag, states, acs, Cc, xc, init_state, hpg):
     b, c, q, nh = acs.shape
     hd = xc.shape[-1]
     S = Cc.shape[-1]
+    wt = acs.dtype
     chunk_decay = torch.exp(acs[:, :, -1, :])  # [b,c,nh]
 
     if init_state is None:
-        init_state = torch.zeros(b, nh, hd, S, dtype=torch.float32,
+        init_state = torch.zeros(b, nh, hd, S, dtype=wt,
                                  device=acs.device)
     # scan over chunks: h_prevs[:, i] is the state entering chunk i
     h = init_state
@@ -97,8 +102,8 @@ def _ssd_inter(y_diag, states, acs, Cc, xc, init_state, hpg):
         else Cc
     y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch,
                          h_prevs.to(Ch.dtype),
-                         in_decay.to(Ch.dtype)).to(torch.float32)
-    y = (y_diag.to(torch.float32) + y_off).reshape(b, c * q, nh, hd)
+                         in_decay.to(Ch.dtype)).to(wt)
+    y = (y_diag.to(wt) + y_off).reshape(b, c * q, nh, hd)
     return y, final
 
 
@@ -139,7 +144,7 @@ def ssd_scan_3xtf32_ref(xdt: torch.Tensor, a_log: torch.Tensor,
     b, s, nh, hd = xdt.shape
     G, S = Bm.shape[2], Bm.shape[3]
     Q = min(chunk, s)
-    Qk = Q if Q <= 64 else -(-Q // 2)  # pieces of at most 64 steps
+    Qk = piece_len(Q)
     pad = -(-s // Qk) * Qk - s  # a = 0, x = 0 leave the state intact
     hpg = nh // G
     x = F.pad(xdt, (0, 0, 0, 0, 0, pad)).permute(0, 2, 1, 3)
@@ -166,3 +171,111 @@ def ssd_scan_3xtf32_ref(xdt: torch.Tensor, a_log: torch.Tensor,
         ys.append(y)
     y = torch.cat(ys, dim=2)[:, :, :s].permute(0, 2, 1, 3).contiguous()
     return y, st
+
+
+#: the longest piece of a chunk the CUDA kernels run at once
+MAX_PIECE = 64
+
+
+def piece_len(Q: int) -> int:
+    """The run of steps the CUDA kernels take at once: a chunk of Q <=
+    MAX_PIECE steps whole, a longer one as two pieces.  The recurrence is
+    exact under any chunking, so only rounding depends on it."""
+    return Q if Q <= MAX_PIECE else -(-Q // 2)
+
+
+def ssd_scan_bwd_ref(xdt: torch.Tensor, a_log: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                     dstate: torch.Tensor, chunk: int = 128
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The gradient of ``ssd_scan_ref`` (y and the final state) in the
+    arithmetic of the backward kernel (``ssd_scan.cu``): dy [b, s, nh, hd]
+    and dstate [b, nh, hd, S] in; (dxdt, da_log, dBm, dCm) out, shaped as
+    xdt, a_log, Bm and Cm.
+
+    s is cut into pieces of P = ``piece_len(min(chunk, s))`` steps (zeros
+    pad the last one: a = 0, x = 0, dy = 0 change nothing).  With acs the
+    cumulative sum of a over a piece, e = exp(acs), dte = exp(acs_last -
+    acs) and eT = exp(acs_last):
+
+    1. a sweep forward gives the state h0 entering each piece, a sweep
+       back the adjoint dH of the state leaving it (dstate after the last
+       piece): h' = eT h + X^T (dte B), dH_prev = eT dH + dY^T (e C);
+    2. per piece and head, with L[i, j] = exp(acs_i - acs_j) for j <= i,
+       M = L * (C B^T), W = L * (dY X^T) and E = M * (dY X^T):
+       dX = M^T dY + dte (B dH^T), dC = W B + e (dY h0),
+       dB = W^T C + dte (X dH), and d acs = rowsum E - colsum E
+       + e (C . dY h0) - dte (B . X dH), plus eT <dH, h0> + sum_j dte_j
+       (B_j . (X dH)_j) at the last step; da is d acs summed from the end;
+    3. dB and dC are summed over the heads of each group.
+    """
+    b, s, nh, hd = xdt.shape
+    G, S = Bm.shape[2], Bm.shape[3]
+    hpg = nh // G
+    P = piece_len(min(chunk, s))
+    pad = (-s) % P
+    c = (s + pad) // P
+    wt = torch.promote_types(xdt.dtype, torch.float32)
+
+    def pieces(t, width):  # [b, s, heads, width] -> [b, nh, c, P, width]
+        t = F.pad(t.to(wt), (0, 0, 0, 0, 0, pad))
+        t = t.reshape(b, c, P, t.shape[2], width).permute(0, 3, 1, 2, 4)
+        return t.repeat_interleave(nh // t.shape[1], dim=1)
+
+    X, dY = pieces(xdt, hd), pieces(dy, hd)
+    Bc, Cc = pieces(Bm, S), pieces(Cm, S)
+    a = F.pad(a_log.to(wt), (0, 0, 0, pad)).reshape(b, c, P, nh)
+    acs = torch.cumsum(a.permute(0, 3, 1, 2), dim=-1)  # [b, nh, c, P]
+    e = torch.exp(acs)
+    dte = torch.exp(acs[..., -1:] - acs)
+    eT = torch.exp(acs[..., -1])  # [b, nh, c]
+
+    # 1. the states entering and the adjoints leaving each piece
+    fwd = torch.einsum("bhcqp,bhcqn->bhcpn", dte[..., None] * X, Bc)
+    rev = torch.einsum("bhcqp,bhcqn->bhcpn", e[..., None] * dY, Cc)
+    h = torch.zeros(b, nh, hd, S, dtype=wt, device=xdt.device)
+    lam = dstate.to(wt)
+    h0, dH = [], [None] * c
+    for i in range(c):
+        h0.append(h)
+        h = eT[:, :, i, None, None] * h + fwd[:, :, i]
+    for i in reversed(range(c)):
+        dH[i] = lam
+        lam = eT[:, :, i, None, None] * lam + rev[:, :, i]
+    h0, dH = torch.stack(h0, dim=2), torch.stack(dH, dim=2)
+
+    # 2. each piece on its own
+    lower = torch.tril(torch.ones(P, P, dtype=torch.bool,
+                                  device=xdt.device))
+    L = torch.exp(torch.where(lower, acs[..., :, None] - acs[..., None, :],
+                              -torch.inf))
+    D = torch.einsum("bhcip,bhcjp->bhcij", dY, X)
+    M = L * torch.einsum("bhcin,bhcjn->bhcij", Cc, Bc)
+    W = L * D
+    E = M * D
+    V = torch.einsum("bhcip,bhcpn->bhcin", dY, h0)
+    U = torch.einsum("bhcjp,bhcpn->bhcjn", X, dH)
+    dX = torch.einsum("bhcij,bhcip->bhcjp", M, dY) \
+        + dte[..., None] * torch.einsum("bhcjn,bhcpn->bhcjp", Bc, dH)
+    dC = torch.einsum("bhcij,bhcjn->bhcin", W, Bc) + e[..., None] * V
+    dB = torch.einsum("bhcij,bhcin->bhcjn", W, Cc) + dte[..., None] * U
+    Fk = e * (Cc * V).sum(-1)
+    Gk = dte * (Bc * U).sum(-1)
+    dacs = E.sum(-1) - E.sum(-2) + Fk - Gk
+    last = eT * (dH * h0).sum((-2, -1)) + Gk.sum(-1)
+    dacs = torch.cat([dacs[..., :-1], dacs[..., -1:] + last[..., None]], -1)
+    da = torch.flip(torch.cumsum(torch.flip(dacs, [-1]), -1), [-1])
+
+    # 3. back to the inputs' layouts; dB, dC summed over a group's heads
+    def back(t):  # [b, nh, c, P, w] -> [b, s, nh, w]
+        return t.permute(0, 2, 3, 1, 4).reshape(b, c * P, nh, -1)[:, :s]
+
+    def group_sum(t):
+        t = back(t)
+        return t.reshape(b, s, G, hpg, S).sum(3)
+
+    dxdt = back(dX).to(xdt.dtype)
+    da_log = da.permute(0, 2, 3, 1).reshape(b, c * P, nh)[:, :s]
+    return (dxdt, da_log.to(a_log.dtype), group_sum(dB).to(Bm.dtype),
+            group_sum(dC).to(Cm.dtype))

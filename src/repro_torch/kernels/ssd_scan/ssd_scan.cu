@@ -56,8 +56,46 @@
 // latency.  Copies issued ahead by the copy engine and shared by the
 // blocks of a group are the next step.
 //
-// C interface (ctypes): ssd_scan_f32 returns a cudaError_t as int, 0 on
-// success; the launches go to the caller's stream, unsynchronised.
+// The backward (ssd_scan_bwd_f32): the gradient of y and of the final
+// state with respect to x, a, B and C.  No TPU kernel stands behind it:
+// the JAX package has no custom_vjp and differentiates its oracle
+// ssd_chunked with XLA's autodiff.  It runs in pieces of P <= 64 steps (a
+// longer chunk as two pieces, as above).  Per (batch, head), with acs the
+// cumulative sum of a over a piece, e = exp(acs), dte = exp(acs_last -
+// acs) and eT = exp(acs_last):
+// - ssd_bwd_sweep_kernel: a sweep forward writes the state entering each
+//   piece (h' = eT h + X^T (dte B), from zero) and a sweep back the
+//   adjoint of the state leaving it (dH_prev = eT dH + dY^T (e C), from
+//   dstate) to fp32 scratch; one block per 16 state rows of a head.
+//   h_{t-1} is never rebuilt by dividing by exp(a_t), which underflows
+//   for large dt: the states are kept, and every exp is of a value <= 0.
+// - ssd_bwd_piece_kernel: one block per (piece, head, batch).  With
+//   L[i, j] = exp(acs_i - acs_j) for j <= i, M = L * (C B^T),
+//   W = L * (dY X^T) and E = M * (dY X^T):
+//     dX = M^T dY + dte (B dH^T)      dC = W B + e (dY h0)
+//     dB = W^T C + dte (X dH)
+//     d acs = rowsum E - colsum E + e (C . dY h0) - dte (B . X dH), with
+//     eT <dH, h0> + sum_t dte_t (B_t . (X dH)_t) at the last step;
+//   da is d acs summed from the end of the piece.  dB and dC go out per
+//   head; the caller sums them over a group's heads.
+// Bound on an H100: operations.  Per piece and head dY X^T, M^T dY, W B
+// and W^T C over the lower triangle, the five [P, hd] x [hd, S] products
+// (the two sweeps, dY h0, X dH, B dH^T), and C B^T once per group: at
+// mamba2-2.7b's training shape (b 1, s 2048, nh 80, hd 64, G 1, S 128,
+// P 64) 17.5 GFLOP against 134 MB moved once.  In fp32 FMA outside the
+// tensor cores (67 TFLOP/s, the H100 SXM data sheet) the least time is
+// about 262 us, above the 40 us the bytes take.
+// What the simple design leaves for later: every product is an fp32 FMA
+// from shared memory, a warp-wide load per FMA (a quarter of the FMA
+// rate at best); C B^T is formed per head, not once per group; the
+// pieces' states make a round trip through HBM (2 x 84 MB at the shape
+// above); one 184 KB block per SM hides no load behind math.  The next
+// step is the forward's: the chunked products on the tensor cores in
+// 3xTF32, the states kept on chip.
+//
+// C interface (ctypes): ssd_scan_f32 and ssd_scan_bwd_f32 return a
+// cudaError_t as int, 0 on success; the launches go to the caller's
+// stream, unsynchronised.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -579,6 +617,341 @@ cudaError_t launch_scan(const float* x, const float* a, const float* B,
 
 }  // namespace
 
+// -- the backward: the gradient of y and of the final state ------------------
+
+namespace {
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kSweepRows = 16;  // state rows (of hd) per sweep block
+constexpr int kSweepPer = kSweepRows * kMaxDim / kBwdThreads;
+
+// A piece's log decays (one load per thread), their cumulative sum in
+// order by one thread, and the decays the piece needs: e = exp(acs),
+// dte = exp(acs_last - acs) and exp(acs_last) in *eT.  Every thread of
+// the block calls it; it ends synchronised.  exp is only taken of values
+// <= 0.
+__device__ __forceinline__ void piece_decays(const float* a, int64_t stride,
+                                             int P, float* acs, float* e,
+                                             float* dte, float* eT) {
+  const int tid = threadIdx.x;
+  if (tid < P) acs[tid] = a[tid * stride];
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+    for (int t = 0; t < P; ++t) {
+      run += acs[t];
+      acs[t] = run;
+    }
+    *eT = expf(run);
+  }
+  __syncthreads();
+  if (tid < P) {
+    e[tid] = expf(acs[tid]);
+    dte[tid] = expf(acs[P - 1] - acs[tid]);
+  }
+  __syncthreads();
+}
+
+// The two sweeps over the pieces of one (batch, head), kSweepRows rows of
+// the [hd, S] state per block: forward from the zero state, writing the
+// state that enters each piece to h0; then back from dstate, writing the
+// adjoint of the state that leaves each piece to dh.  Every element of
+// the state is updated on its own, so its rows split over blocks freely.
+__global__ void __launch_bounds__(kBwdThreads)
+    ssd_bwd_sweep_kernel(const float* __restrict__ x,
+                         const float* __restrict__ a,
+                         const float* __restrict__ Bm,
+                         const float* __restrict__ Cm,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dstate,
+                         float* __restrict__ h0, float* __restrict__ dh,
+                         int s, int nh, int hd, int G, int S, int P) {
+  __shared__ float acs[kMaxChunk], e[kMaxChunk], dte[kMaxChunk], eT;
+  __shared__ float Xs[kMaxChunk][kSweepRows];
+  __shared__ float Bs[kMaxChunk][kMaxDim];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kSweepRows;
+  const int h = blockIdx.y;
+  const int64_t bi = blockIdx.z;
+  const int g = h / (nh / G);
+  const int nc = s / P;
+  const int ne = kSweepRows * S;
+  const int64_t plane = static_cast<int64_t>(hd) * S;
+  float st[kSweepPer];
+  int64_t off[kSweepPer];  // each element's offset in a [hd, S] plane
+  bool mine[kSweepPer];
+#pragma unroll
+  for (int k = 0; k < kSweepPer; ++k) {
+    const int el = tid + k * kBwdThreads;
+    mine[k] = el < ne && r0 + el / S < hd;
+    off[k] = static_cast<int64_t>(r0 + el / S) * S + el % S;
+  }
+  for (int dir = 0; dir < 2; ++dir) {
+    // dir 0: h' = eT h + sum_t (dte_t x_t) B_t from zero;
+    // dir 1: dH_prev = eT dH + sum_t (e_t dy_t) C_t from dstate
+    const float* in = dir == 0 ? x : dy;
+    const float* vec = dir == 0 ? Bm : Cm;
+    float* save = (dir == 0 ? h0 : dh) + (bi * nh + h) * nc * plane;
+#pragma unroll
+    for (int k = 0; k < kSweepPer; ++k)
+      st[k] = (dir == 1 && mine[k]) ? dstate[(bi * nh + h) * plane + off[k]]
+                                    : 0.f;
+    for (int i = 0; i < nc; ++i) {
+      const int c = dir == 0 ? i : nc - 1 - i;
+      const int64_t t0 = bi * s + static_cast<int64_t>(c) * P;
+#pragma unroll
+      for (int k = 0; k < kSweepPer; ++k)
+        if (mine[k]) save[c * plane + off[k]] = st[k];
+      __syncthreads();  // the last piece's reads of shared memory are done
+      piece_decays(a + t0 * nh + h, nh, P, acs, e, dte, &eT);
+      // unrolled so that each thread has several loads in flight
+#pragma unroll 4
+      for (int idx = tid; idx < P * kSweepRows; idx += kBwdThreads) {
+        const int t = idx / kSweepRows, r = idx % kSweepRows;
+        Xs[t][r] = r0 + r < hd ? in[((t0 + t) * nh + h) * hd + r0 + r] : 0.f;
+      }
+#pragma unroll 8
+      for (int idx = tid; idx < P * S; idx += kBwdThreads) {
+        const int t = idx / S, n = idx % S;
+        Bs[t][n] = vec[((t0 + t) * G + g) * S + n];
+      }
+      __syncthreads();
+      const float* w = dir == 0 ? dte : e;
+#pragma unroll
+      for (int k = 0; k < kSweepPer; ++k) {
+        if (!mine[k]) continue;
+        const int el = tid + k * kBwdThreads;
+        const int r = el / S, n = el % S;
+        float acc = 0.f;
+        for (int t = 0; t < P; ++t) acc = fmaf(w[t] * Xs[t][r], Bs[t][n], acc);
+        st[k] = eT * st[k] + acc;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The sum over the 32 lanes of a warp, the same tree on every lane
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory of one piece block, in floats: X and dY [P, hd + 1], B
+// and C [P, S + 1], the state [hd, S + 1] (h0, then dH), M, W and E
+// [P, P + 1], five [P] vectors (acs, e, dte, d acs, the G terms) and the
+// warps' partial sums with exp(acs_last).  The + 1 keeps the column reads
+// free of bank conflicts.
+inline size_t bwd_smem_floats(int P, int hd, int S) {
+  return static_cast<size_t>(2 * P * (hd + 1) + 2 * P * (S + 1) +
+                             hd * (S + 1) + 3 * P * (P + 1) + 5 * P +
+                             kBwdWarps + 1);
+}
+
+// Everything of one piece of one (batch, head): dX, da, and the head's
+// dB and dC partials (the caller sums them over a group's heads).
+__global__ void __launch_bounds__(kBwdThreads)
+    ssd_bwd_piece_kernel(const float* __restrict__ x,
+                         const float* __restrict__ a,
+                         const float* __restrict__ Bm,
+                         const float* __restrict__ Cm,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ dh,
+                         float* __restrict__ dx, float* __restrict__ da,
+                         float* __restrict__ dBh, float* __restrict__ dCh,
+                         int s, int nh, int hd, int G, int S, int P) {
+  extern __shared__ float smem[];
+  const int XW = hd + 1, SW = S + 1, PW = P + 1;
+  float* Xs = smem;
+  float* dYs = Xs + P * XW;
+  float* Bs = dYs + P * XW;
+  float* Cs = Bs + P * SW;
+  float* Hs = Cs + P * SW;
+  float* Ms = Hs + hd * SW;
+  float* Ws = Ms + P * PW;
+  float* Es = Ws + P * PW;
+  float* acs = Es + P * PW;
+  float* e = acs + P;
+  float* dte = e + P;
+  float* dacs = dte + P;
+  float* gk = dacs + P;
+  float* part = gk + P;  // kBwdWarps partial sums, then exp(acs_last)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c = blockIdx.x, h = blockIdx.y;
+  const int64_t bi = blockIdx.z;
+  const int g = h / (nh / G);
+  const int nc = s / P;
+  const int64_t t0 = bi * s + static_cast<int64_t>(c) * P;
+  const int64_t plane = static_cast<int64_t>(hd) * S;
+  const float* h0_p = h0 + ((bi * nh + h) * nc + c) * plane;
+  const float* dh_p = dh + ((bi * nh + h) * nc + c) * plane;
+
+  piece_decays(a + t0 * nh + h, nh, P, acs, e, dte, part + kBwdWarps);
+  // the loads are unrolled so that each thread has several in flight
+#pragma unroll 8
+  for (int idx = tid; idx < P * hd; idx += kBwdThreads) {
+    const int t = idx / hd, p = idx % hd;
+    const int64_t o = ((t0 + t) * nh + h) * hd + p;
+    Xs[t * XW + p] = x[o];
+    dYs[t * XW + p] = dy[o];
+  }
+#pragma unroll 8
+  for (int idx = tid; idx < P * S; idx += kBwdThreads) {
+    const int t = idx / S, n = idx % S;
+    const int64_t o = ((t0 + t) * G + g) * S + n;
+    Bs[t * SW + n] = Bm[o];
+    Cs[t * SW + n] = Cm[o];
+  }
+#pragma unroll 8
+  for (int idx = tid; idx < hd * S; idx += kBwdThreads)
+    Hs[(idx / S) * SW + idx % S] = h0_p[idx];
+  __syncthreads();
+
+  // M = L * (C B^T), W = L * (dY X^T), E = M * (dY X^T), zero above the
+  // diagonal
+  for (int idx = tid; idx < P * P; idx += kBwdThreads) {
+    const int i = idx / P, j = idx % P;
+    float m = 0.f, w = 0.f, en = 0.f;
+    if (j <= i) {
+      float cb = 0.f, d = 0.f;
+      for (int n = 0; n < S; ++n) cb = fmaf(Cs[i * SW + n], Bs[j * SW + n], cb);
+      for (int p = 0; p < hd; ++p) d = fmaf(dYs[i * XW + p], Xs[j * XW + p], d);
+      const float L = expf(acs[i] - acs[j]);
+      m = L * cb;
+      w = L * d;
+      en = m * d;
+    }
+    Ms[i * PW + j] = m;
+    Ws[i * PW + j] = w;
+    Es[i * PW + j] = en;
+  }
+  // <dH, h0> over the piece: per thread, per warp, then the warps in order
+  float hdot = 0.f;
+#pragma unroll 8
+  for (int idx = tid; idx < hd * S; idx += kBwdThreads)
+    hdot = fmaf(dh_p[idx], Hs[(idx / S) * SW + idx % S], hdot);
+  hdot = warp_sum(hdot);
+  if (lane == 0) part[warp] = hdot;
+  __syncthreads();
+
+  // d acs = row sum of E - column sum of E
+  for (int k = tid; k < P; k += kBwdThreads) {
+    float row = 0.f, col = 0.f;
+    for (int j = 0; j < P; ++j) row += Es[k * PW + j];
+    for (int i = 0; i < P; ++i) col += Es[i * PW + k];
+    dacs[k] = row - col;
+  }
+  __syncthreads();
+
+  // dC = W B + e (dY h0), and d acs += e (C . dY h0); a warp per row
+  for (int i = warp; i < P; i += kBwdWarps) {
+    float v[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = 0; p < hd; ++p) {
+      const float d = dYs[i * XW + p];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (lane + 32 * m < S) v[m] = fmaf(d, Hs[p * SW + lane + 32 * m], v[m]);
+    }
+    for (int j = 0; j <= i; ++j) {
+      const float w = Ws[i * PW + j];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (lane + 32 * m < S)
+          t1[m] = fmaf(w, Bs[j * SW + lane + 32 * m], t1[m]);
+    }
+    float f = 0.f;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int n = lane + 32 * m;
+      if (n < S) {
+        dCh[((t0 + i) * nh + h) * S + n] = t1[m] + e[i] * v[m];
+        f = fmaf(Cs[i * SW + n], v[m], f);
+      }
+    }
+    f = warp_sum(f);
+    if (lane == 0) dacs[i] += e[i] * f;
+  }
+  __syncthreads();
+#pragma unroll 8
+  for (int idx = tid; idx < hd * S; idx += kBwdThreads)
+    Hs[(idx / S) * SW + idx % S] = dh_p[idx];
+  __syncthreads();
+
+  // dB = W^T C + dte (X dH), and the G terms dte (B . X dH); a warp per row
+  for (int j = warp; j < P; j += kBwdWarps) {
+    float u[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = 0; p < hd; ++p) {
+      const float xv = Xs[j * XW + p];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (lane + 32 * m < S)
+          u[m] = fmaf(xv, Hs[p * SW + lane + 32 * m], u[m]);
+    }
+    for (int i = j; i < P; ++i) {
+      const float w = Ws[i * PW + j];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (lane + 32 * m < S)
+          t1[m] = fmaf(w, Cs[i * SW + lane + 32 * m], t1[m]);
+    }
+    float gs = 0.f;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int n = lane + 32 * m;
+      if (n < S) {
+        dBh[((t0 + j) * nh + h) * S + n] = t1[m] + dte[j] * u[m];
+        gs = fmaf(Bs[j * SW + n], u[m], gs);
+      }
+    }
+    gs = warp_sum(gs);
+    if (lane == 0) gk[j] = dte[j] * gs;
+  }
+
+  // dX = M^T dY + dte (B dH^T); a warp per row, its lanes over hd
+  for (int j = warp; j < P; j += kBwdWarps) {
+    float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = j; i < P; ++i) {
+      const float mij = Ms[i * PW + j];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (lane + 32 * m < hd)
+          t1[m] = fmaf(mij, dYs[i * XW + lane + 32 * m], t1[m]);
+    }
+    for (int n = 0; n < S; ++n) {
+      const float bv = Bs[j * SW + n];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (lane + 32 * m < hd)
+          t2[m] = fmaf(bv, Hs[(lane + 32 * m) * SW + n], t2[m]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (lane + 32 * m < hd)
+        dx[((t0 + j) * nh + h) * hd + lane + 32 * m] = t1[m] + dte[j] * t2[m];
+  }
+  __syncthreads();
+
+  // da: d acs minus the G terms, with the last step's own terms, summed
+  // from the end of the piece
+  if (tid == 0) {
+    float hsum = 0.f, gsum = 0.f;
+    for (int w = 0; w < kBwdWarps; ++w) hsum += part[w];
+    for (int t = 0; t < P; ++t) gsum += gk[t];
+    float run = 0.f;
+    for (int t = P - 1; t >= 0; --t) {
+      float d = dacs[t] - gk[t];
+      if (t == P - 1) d += part[kBwdWarps] * hsum + gsum;
+      run += d;
+      da[(t0 + t) * nh + h] = run;
+    }
+  }
+}
+
+}  // namespace
+
 extern "C" {
 
 // Q: the op's chunk length (s is a multiple of it), run in pieces of at
@@ -642,6 +1015,57 @@ int ssd_scan_f32(const void* x, const void* a_log, const void* Bm,
     err = launch_scan<4>(xf, af, bf, cf, cb, yf, sf, b, s, nh, hd, G, S, Qk,
                          ks, smem, st);
   return static_cast<int>(err);
+}
+
+// The backward of ssd_scan_f32 (see the header): s is a multiple of the
+// piece P <= 64, zero-padded as the forward pads; h0 and dh are scratch
+// of b * nh * (s / P) * hd * S floats each; dB and dC take each head's
+// partial [b, s, nh, S], for the caller to sum over a group's heads.
+int ssd_scan_bwd_f32(const void* x, const void* a_log, const void* Bm,
+                     const void* Cm, const void* dy, const void* dstate,
+                     void* h0, void* dh, void* dx, void* da, void* dB,
+                     void* dC, int b, int s, int nh, int hd, int G, int S,
+                     int P, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b <= 0 || s <= 0 || nh <= 0) return 0;
+  if (P <= 0 || P > kMaxChunk || s % P != 0 || hd <= 0 || hd > kMaxDim ||
+      S <= 0 || S > kMaxDim || G <= 0 || nh % G != 0 || b > 65535 ||
+      nh > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * bwd_smem_floats(P, hd, S);
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* af = static_cast<const float*>(a_log);
+  const float* bf = static_cast<const float*>(Bm);
+  const float* cf = static_cast<const float*>(Cm);
+  const float* dyf = static_cast<const float*>(dy);
+  float* h0f = static_cast<float*>(h0);
+  float* dhf = static_cast<float*>(dh);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  ssd_bwd_sweep_kernel<<<dim3((hd + kSweepRows - 1) / kSweepRows, nh, b),
+                         kBwdThreads, 0, st>>>(
+      xf, af, bf, cf, dyf, static_cast<const float*>(dstate), h0f, dhf, s,
+      nh, hd, G, S, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(ssd_bwd_piece_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ssd_bwd_piece_kernel<<<dim3(s / P, nh, b), kBwdThreads, smem, st>>>(
+      xf, af, bf, cf, dyf, h0f, dhf, static_cast<float*>(dx),
+      static_cast<float*>(da), static_cast<float*>(dB),
+      static_cast<float*>(dC), s, nh, hd, G, S, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* ssd_scan_error_string(int err) {

@@ -63,6 +63,7 @@ def token_delta_encode(video: torch.Tensor) -> torch.Tensor:
         return token_delta_encode_ref(video)
     if video.device.type != "cuda":
         raise ValueError(f"token_delta_encode: no kernel for {video.device}")
+    build.refuse_grad("token_delta_encode", video)
     _check("token_delta_encode", (("video", video),))
     if video.dim() != 3:
         raise ValueError(f"token_delta_encode: video {tuple(video.shape)} "
@@ -92,6 +93,7 @@ def token_delta_decode_frames(prev_frame: torch.Tensor,
     if zres.device.type != "cuda":
         raise ValueError(f"token_delta_decode_frames: no kernel for "
                          f"{zres.device}")
+    build.refuse_grad("token_delta_decode_frames", prev_frame, zres)
     _check("token_delta_decode_frames",
            (("zres", zres), ("prev_frame", prev_frame)))
     if zres.dim() != 3 or prev_frame.shape != zres.shape[1:]:

@@ -1,9 +1,11 @@
-"""Shared model components: RMSNorm, activations and RoPE.
+"""Shared model components: RMSNorm, activations, RoPE and the loss.
 
 Counterpart of ``repro/models/common.py``; the inits live in
 ``repro_torch/params.py``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -50,3 +52,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy. logits [..., V] fp32-cast; labels int;
+    with ``mask``, the mean over the masked positions (at least one)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

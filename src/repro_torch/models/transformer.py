@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -217,21 +218,37 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x + out2, new_cache, aux
 
 
+def _full_layer(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    x, _, aux = _apply_layer(kind, p, x, cfg, mode="full", cache=None,
+                             pos=None, positions=positions)
+    return x, aux
+
+
 def _run_stack(params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                cache: Optional[Cache], pos: Optional[int],
-               positions: torch.Tensor
+               positions: torch.Tensor, remat: bool = False
                ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Returns (x, new_cache, summed aux loss)."""
+    """Returns (x, new_cache, summed aux loss).  ``remat`` (mode "full"
+    only) keeps no activation of a layer for the backward but its input,
+    and runs the layer again there, as ``jax.checkpoint`` around the JAX
+    package's scanned layer body does."""
     n_prefix, n_cycles, _ = layer_plan(cfg)
     cycle_end = n_prefix + n_cycles * len(cfg.layer_pattern)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Cache = []
     for i, (kind, lp) in enumerate(zip(stack_kinds(cfg), params["layers"])):
-        x, nc, aux = _apply_layer(
-            kind, lp, x, cfg, mode=mode,
-            cache=cache[i] if cache is not None else None, pos=pos,
-            positions=positions,
-            token_cache_updates=mode == "decode" and n_prefix <= i < cycle_end)
+        if remat:
+            x, aux = checkpoint(_full_layer, kind, lp, x, cfg, positions,
+                                use_reentrant=False)
+            nc = None
+        else:
+            x, nc, aux = _apply_layer(
+                kind, lp, x, cfg, mode=mode,
+                cache=cache[i] if cache is not None else None, pos=pos,
+                positions=positions,
+                token_cache_updates=(mode == "decode"
+                                     and n_prefix <= i < cycle_end))
         aux_total = aux_total + aux
         new_cache.append(nc)
     return x, (new_cache if cache is not None else None), aux_total
@@ -285,15 +302,13 @@ def _positions(tokens, embeds) -> torch.Tensor:
 def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                  mask_positions=None, remat: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (train path). Returns (logits, moe_aux)."""
-    if remat:
-        raise NotImplementedError(
-            "forward_full(remat=True) is not ported yet: activation "
-            "checkpointing arrives with the training slice of the port")
+    """Full-sequence forward (train path). Returns (logits, moe_aux).
+    ``remat`` checkpoints each layer (``torch.utils.checkpoint``): the
+    same values, with a layer's activations rebuilt in the backward."""
     positions = _positions(tokens, embeds)
     x = embed_inputs(params, cfg, tokens, embeds, positions, mask_positions)
     x, _, aux = _run_stack(params, cfg, x, mode="full", cache=None, pos=None,
-                           positions=positions)
+                           positions=positions, remat=remat)
     return lm_logits(params, cfg, x), aux
 
 

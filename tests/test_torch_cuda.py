@@ -12,7 +12,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.cluster.network import BandwidthTrace  # noqa: E402
 from repro_torch.cluster.storage import KVStore  # noqa: E402
-from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ASSIGNED_ARCHS, get_config, reduce_config)
+from repro_torch.data.pipeline import DataConfig, batches  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
 from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
     kv_restore_layers_ref, kv_restore_ref)
@@ -20,7 +22,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_decode_frame_ref, token_delta_decode_frames_ref,
@@ -31,6 +34,11 @@ from repro_torch.core.chunks import prefix_key  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    AdamW, constant_schedule)
+from repro_torch.training.steps import (  # noqa: E402
+    TrainState, make_train_step)
+from repro_torch.tree import flatten, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -353,7 +361,7 @@ def _scan_inputs(b, s, nh, hd, G, S, seed, device):
             f((b, s, G, S), 0.3), f((b, s, G, S), 0.3))
 
 
-@pytest.mark.parametrize("b,s,nh,hd,G,S,chunk", [
+SCAN_SHAPES = [
     (1, 40, 2, 8, 1, 4, 64),          # Q = s = 40, not a power of two
     (1, 100, 2, 8, 1, 4, 32),         # padded to 128
     (2, 64, 4, 16, 2, 8, 32),         # two groups
@@ -364,7 +372,10 @@ def _scan_inputs(b, s, nh, hd, G, S, seed, device):
     (1, 256, 8, 64, 2, 128, 64),      # G = 2, nh = 8: two-block clusters
     (1, 300, 8, 64, 2, 128, 128),     # chunk 128: two pieces of 64
     (1, 72, 3, 24, 3, 16, 64),        # hd not a multiple of 16: one slice
-])
+]
+
+
+@pytest.mark.parametrize("b,s,nh,hd,G,S,chunk", SCAN_SHAPES)
 def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, hd, G, S, chunk):
     args = _scan_inputs(b, s, nh, hd, G, S, s, cuda)
     want_y, want_st = ssd_scan_ref(*args, chunk=chunk)
@@ -377,6 +388,32 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, hd, G, S, chunk):
     for got, want in ((y, want_y), (st, want_st)):
         err = (got - want).abs().max().item()
         assert err <= 2e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,s,nh,hd,G,S,chunk", SCAN_SHAPES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, b, s, nh, hd, G, S, chunk):
+    """The backward kernel (through the op's autograd Function) against
+    ``ssd_scan_bwd_ref`` on the card, from the forward test's inputs and a
+    seeded dy and non-zero dstate: 2e-4 of each gradient's largest
+    magnitude (fp32 sums in another order)."""
+    args = _scan_inputs(b, s, nh, hd, G, S, s, cuda)
+    rng = np.random.default_rng(s + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, s, nh, hd)).astype(
+        np.float32)).to(cuda)
+    ds = torch.from_numpy(rng.standard_normal((b, nh, hd, S)).astype(
+        np.float32)).to(cuda)
+    want = ssd_scan_bwd_ref(*args, dy, ds, chunk=chunk)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (ssd_ops.launches, ssd_ops.bwd_launches)
+    y, st = ssd_ops.ssd_scan(*leaves, chunk=chunk)
+    got = torch.autograd.grad((y, st), leaves, (dy, ds))
+    torch.cuda.synchronize()
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err = (g - w).abs().max().item()
+        assert err <= 2e-4 * w.abs().max().item(), err
 
 
 def test_ssd_scan_kernel_rejects_bad_arguments(cuda):
@@ -745,3 +782,72 @@ def test_ring_cache_decode_on_the_card_matches_the_cpu(cuda, arch):
         outs.append(torch.stack(steps).cpu())
     scale = outs[0].abs().max().item()
     assert (outs[1] - outs[0]).abs().max().item() <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One train step of each reduced assigned arch from weights drawn on
+    the CPU, on both devices: loss and grad norm within 2e-4 relative,
+    the updated parameters within tests/test_training.py's envelope for
+    Adam (atol 5e-3 at lr 1e-3); reduced mamba2 through both kernels."""
+    cfg = reduce_config(get_config(arch))
+    opt = AdamW(lr=constant_schedule(1e-3))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in next(batches(
+        cfg, DataConfig(batch_size=2, seq_len=32, seed=3))).items()}
+    out = []
+    for dev in ("cpu", cuda):
+        # a copy on each device: the step updates it in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        state = TrainState(p, opt.init(p),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        before = (ssd_ops.launches, ssd_ops.bwd_launches)
+        state, m = make_train_step(cfg, opt)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        n = cfg.num_layers if dev != "cpu" and arch == "mamba2-2.7b" else 0
+        # remat: each layer's forward runs twice, its backward once
+        assert (ssd_ops.launches - before[0],
+                ssd_ops.bwd_launches - before[1]) == (2 * n, n)
+        out.append((m, tree_map(lambda t: t.cpu(), state.params)))
+    (m0, p0), (m1, p1) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m1[k]) - float(m0[k])) <= 2e-4 * abs(float(m0[k]))
+    for (path, a), (_, b) in zip(flatten(p0), flatten(p1)):
+        assert (a - b).abs().max().item() <= 5e-3, path
+
+
+def test_kv_restore_refuses_grad(cuda):
+    pages, q, scales, sl = _restore_case(8, 4, 16, 32, torch.float32,
+                                         list(range(8)), 0, cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        kv_ops.kv_restore(pages.requires_grad_(), q, scales, sl)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        kv_ops.kv_restore_layers(pages.detach()[None], [0], q[None],
+                                 scales[None].requires_grad_(), sl)
+    with torch.no_grad():
+        kv_ops.kv_restore(pages, q, scales, sl)
+
+
+def test_paged_attention_refuses_grad(cuda):
+    q = torch.randn(2, 4, 32, device=cuda)
+    kp = torch.randn(4, 16, 4, 32, device=cuda)
+    vp = torch.randn_like(kp)
+    bt = torch.arange(4, dtype=torch.int32, device=cuda).reshape(2, 2)
+    cl = torch.tensor([20, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        pa_ops.paged_attention(q.requires_grad_(), kp, vp, bt, cl)
+    with torch.no_grad():
+        pa_ops.paged_attention(q, kp, vp, bt, cl)
+
+
+def test_token_delta_refuses_grad(cuda):
+    """Its tensors are uint8 and cannot require grad; a float tensor that
+    does is refused for its gradient before its dtype."""
+    video = torch.randint(0, 256, (3, 5, 7), dtype=torch.uint8, device=cuda)
+    wants_grad = video.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        td_ops.token_delta_encode(wants_grad)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        td_ops.token_delta_decode_frames(video[0], wants_grad)
+    assert torch.equal(td_ops.token_delta_encode(video),
+                       token_delta_encode_ref(video))

@@ -202,6 +202,30 @@ def test_forward_full_matches_jax(arch, layers):
     _close(logits, want, 2e-4)
     assert abs(float(aux) - float(aux_j)) <= 1e-5
     assert (float(aux) > 0) == bool(cfg.num_experts)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tf.forward_full(params, cfg, tokens=_t(tokens), embeds=_t(embeds),
-                        remat=True)
+    # remat (a checkpoint per layer) changes neither the values nor the
+    # gradients of every parameter
+    leaves = [p for _, p in jax.tree_util.tree_leaves_with_path(params)]
+    rng = np.random.default_rng(2)
+    weight = torch.from_numpy(rng.standard_normal(tuple(logits.shape))
+                              .astype(np.float32))
+    out = []
+    for remat in (False, True):
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            lg, ax = tf.forward_full(params, cfg, tokens=_t(tokens),
+                                     embeds=_t(embeds),
+                                     mask_positions=_t(mask), remat=remat)
+            grads = torch.autograd.grad((lg * weight).sum() + ax, leaves,
+                                        allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        out.append((lg.detach(), ax.detach(), grads))
+    (lg0, ax0, g0), (lg1, ax1, g1) = out
+    assert torch.equal(lg0, logits) and torch.equal(lg1, lg0)
+    assert torch.equal(ax1, ax0)
+    for a, b in zip(g0, g1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _close(b, a.numpy(), 1e-6)
