@@ -109,14 +109,17 @@ JAX or of the JAX package.  Phases:
    (the larger of its bytes and its 3xTF32 tensor-core operations, with
    the fp32 SIMT figure beside it), with phase 1's count of two kernels
    per op call;
-8b. backward: ``ssd_scan_bwd`` (the backward kernel, two launches: the
-   sweeps over the pieces' states, then one block per piece and head;
-   then two PyTorch sums over a group's heads) against its plain version ``ssd_scan_bwd_ref`` and against
-   ``torch.autograd`` through ``ssd_scan_ref`` on the card, from a seeded
-   dy and a non-zero dstate at s 2048, 40 and 2064 (padded): dxdt,
-   da_log, dBm and dCm each within 2e-4 of its largest magnitude; timed
-   in a CUDA graph beside its bound (fp32 SIMT operations) and the
-   forward's time;
+8b. backward: ``ssd_scan_bwd`` (the backward kernel, three launches,
+   every product in 3xTF32 on the tensor cores: C.B^T once per piece and
+   group, the sweeps over the pieces' states with the state in
+   registers, then one block per piece and head; then two PyTorch sums
+   over a group's heads) against its plain version ``ssd_scan_bwd_ref``
+   and against ``torch.autograd`` through ``ssd_scan_ref`` on the card,
+   from a seeded dy and a non-zero dstate at s 2048, 40 and 2064
+   (padded): dxdt, da_log, dBm and dCm each within 2e-4 of its largest
+   magnitude; timed in a CUDA graph beside its bound (the larger of its
+   bytes and its 3xTF32 tensor-core operations, with the fp32 SIMT
+   figure beside it) and the forward's time;
 9. Mamba2 path (state-snapshot prefix reuse): a donor prefills the
    prefix; its recurrent state is snapshotted, encoded on the host,
    decoded, rebuilt on the card bit for bit, and two reuse requests
@@ -501,11 +504,11 @@ def kernel_counts() -> dict:
     counts = json.loads(out.stdout.strip().splitlines()[-1])
     for name, c in counts.items():
         # what the sources launch: kv_restore one kernel, ssd_scan C.B^T
-        # then the scan, its backward the sweeps and the pieces (and two
-        # PyTorch sums of dB and dC over a group's heads), the
+        # then the scan, its backward C.B^T, the sweeps and the pieces
+        # (and two PyTorch sums of dB and dC over a group's heads), the
         # token-delta ops one kernel per stack, paged_attention its split
         # kernel and, when it splits the pages, the merge
-        want = {"ssd_scan": 2, "ssd_scan_bwd": 4, "token_delta_encode": 1,
+        want = {"ssd_scan": 2, "ssd_scan_bwd": 5, "token_delta_encode": 1,
                 "token_delta_decode_frames": 1}.get(
             name, 1 if name.startswith("kv_restore") or c["splits"] == 1
             else 2)
@@ -1827,12 +1830,14 @@ def ssd_scan_phase(dev, cfg, n_kernels: int):
 # -- phase 8b: ssd_scan's backward against its plain version -----------------
 
 def scan_bwd_bound(b, s, nh, hd, G, S, Q):
-    """(ms, "bytes" | "operations") of one backward, fp32 SIMT: x, a, B,
-    C, dy and dstate read once, dx, da, dB and dC written once; the
+    """(ms, "bytes" | "operations", fp32 SIMT ms) of one backward: x, a,
+    B, C, dy and dstate read once, dx, da, dB and dC written once; the
     products the chunked gradient needs per piece of P steps
     (``ssd_scan.cu``): C.B^T once per group, and per head dY.X^T, M^T.dY,
     W.B and W^T.C over the lower triangle, and the five [P, hd] x [hd, S]
-    products (the two sweeps, dY.h0, X.dH, B.dH^T)."""
+    products (the two sweeps, dY.h0, X.dH, B.dH^T).  The kernel forms
+    them in 3xTF32 on the tensor cores, three TF32 products each; the
+    third value is the same work in fp32 outside them."""
     P = piece_len(min(Q, s))
     c = -(-s // P)
     tri = P * (P + 1) // 2
@@ -1840,7 +1845,8 @@ def scan_bwd_bound(b, s, nh, hd, G, S, Q):
                    + b * nh * hd * S)
     n_flops = 2 * b * c * (G * tri * S + nh * (2 * tri * hd + 2 * tri * S
                                                + 5 * P * hd * S))
-    return bound(n_bytes, n_flops)
+    ms, by = bound(n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
+    return ms, by, n_flops / FP32_FLOPS_PER_S * 1e3
 
 
 def ssd_scan_bwd_phase(dev, cfg, n_kernels: int, fwd_ms: float):
@@ -1886,13 +1892,17 @@ def ssd_scan_bwd_phase(dev, cfg, n_kernels: int, fwd_ms: float):
                        iters=20)
     plain_ms = graph_ms(lambda: ssd_scan_bwd_ref(*timed, chunk=SCAN_CHUNK),
                         iters=5)
-    b_ms, b_by = scan_bwd_bound(1, MAMBA_PREFIX, nh, hd, G, S, SCAN_CHUNK)
+    b_ms, b_by, simt_ms = scan_bwd_bound(1, MAMBA_PREFIX, nh, hd, G, S,
+                                         SCAN_CHUNK)
+    piece, ks, cs = ssd_ops.bwd_plan(SCAN_CHUNK, hd, S)
     log(f"[kernel] ssd_scan_bwd s={MAMBA_PREFIX}: {n_kernels} CUDA kernels "
-        f"per op call (sweeps, pieces, two sums); device {ms * 1e3:.2f} "
-        f"us/call (eager call {eager_ms * 1e3:.2f} us; the forward "
-        f"{fwd_ms * 1e3:.2f} us; plain version {plain_ms * 1e3:.2f} us; no "
-        f"single PyTorch call computes it; bound {b_ms * 1e3:.2f} us by "
-        f"{b_by} in fp32 SIMT at 67 TFLOP/s)")
+        f"per op call (C.B^T, sweeps on {2 * nh * ks * cs} blocks, pieces of "
+        f"{piece} on {nh * -(-MAMBA_PREFIX // piece)} blocks, two sums); "
+        f"device {ms * 1e3:.2f} us/call (eager call {eager_ms * 1e3:.2f} "
+        f"us; the forward {fwd_ms * 1e3:.2f} us; plain version "
+        f"{plain_ms * 1e3:.2f} us; no single PyTorch call computes it; "
+        f"bound {b_ms * 1e3:.2f} us by {b_by} in 3xTF32 at 495 TFLOP/s, "
+        f"fp32 SIMT {simt_ms * 1e3:.2f} us)")
     return dict(name="ssd_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
                 replaces="src/repro/models/ssm.py:99",

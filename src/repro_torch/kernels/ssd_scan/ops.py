@@ -6,8 +6,11 @@ chunk and group into fp32 scratch, then the scan over b * nh * slices
 blocks (``plan``); every product in 3xTF32 on the tensor cores.  When an
 input requires grad (and grad mode is on), the call goes through a
 ``torch.autograd.Function`` whose backward is the backward kernel
-(``ssd_scan_bwd_f32``, two more launches: the sweeps over the pieces'
-states, then one block per piece and head) on the card and
+(``ssd_scan_bwd_f32``, three more launches, every product in 3xTF32 too:
+C.B^T of every piece and group, the sweeps over the pieces' states (a
+block per head, direction and 64 x 64 tile of the state), then one block
+per piece and head; then two PyTorch sums of dB and dC over a group's
+heads) on the card and
 ``ssd_scan_bwd_ref`` on the CPU.  Otherwise nothing is saved and the
 forward launches exactly as it does for serving."""
 from __future__ import annotations
@@ -53,7 +56,7 @@ def _bwd_launcher():
     if _bwd_fn is None:
         fn = build.load("ssd_scan").ssd_scan_bwd_f32
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 8 + [p]
+        fn.argtypes = [p] * 13 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -77,14 +80,36 @@ def smem_bytes(Q: int, hd: int, S: int) -> int:
                 + PP * (SP + 4) + 4 * QP)
 
 
+def bwd_plan(Q: int, hd: int, S: int) -> Tuple[int, int, int]:
+    """(piece, row slices, column slices) of the backward: pieces of
+    ``piece_len(Q)`` steps; each sweep block holds a tile of at most 64 x
+    64 of a head's [hd, S] state, so head_dim above 64 is cut into two
+    row slices and a state above 64 into two column slices."""
+    return piece_len(Q), (2 if hd > 64 else 1), (2 if S > 64 else 1)
+
+
 def bwd_smem_bytes(Q: int, hd: int, S: int) -> int:
-    """Shared memory of one block of the backward's piece kernel
-    (``ssd_scan.cu``, ``bwd_smem_floats``), all fp32: X and dY [P, hd + 1],
-    B and C [P, S + 1], the state [hd, S + 1], three [P, P + 1] products,
-    five [P] vectors and nine partial sums, with P = ``piece_len(Q)``."""
-    P = piece_len(Q)
-    return 4 * (2 * P * (hd + 1) + 2 * P * (S + 1) + hd * (S + 1)
-                + 3 * P * (P + 1) + 5 * P + 9)
+    """Shared memory of the backward's larger block (``ssd_scan.cu``), all
+    fp32, with the piece P = ``piece_len(Q)`` padded to QP (a multiple of
+    16) and rows padded as the kernel pads them.  A piece block holds X
+    and dY [QP, hd32 + 4], B [QP, S32 + 4], M and W [QP, QP + 4], four
+    [QP] vectors, sixteen [QP] rows of partial sums (E's rows and
+    columns per tile, C.V and B.U per strip of S) and five scalars (hd32,
+    S32: rounded up to 32).  A sweep block holds two stages of its
+    columns of B or C [QP, CW + 8], its rows of X or dY [QP, RP + 8] and
+    a [QP], and three [QP] vectors and a scalar (CW: the tile's columns
+    rounded up to 8, RP: its rows rounded up to 16)."""
+    def up(x, m):
+        return -(-x // m) * m
+
+    P, ks, cs = bwd_plan(Q, hd, S)
+    QP = up(P, 16)
+    hd32, S32 = up(hd, 32), up(S, 32)
+    CW = up(-(-S // cs), 8)
+    RP = up(-(-hd // ks), 16)
+    piece = QP * (2 * (hd32 + 4) + S32 + 4 + 2 * (QP + 4) + 20) + 5
+    sweep = 2 * QP * (CW + 8 + RP + 8 + 1) + 3 * QP + 1
+    return 4 * max(piece, sweep)
 
 
 def _check(xdt, a_log, Bm, Cm, Q: int, grad: bool = False) -> None:
@@ -235,8 +260,11 @@ def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
         a_log = F.pad(a_log, (0, 0, 0, pad))
     sp = s + pad
     f32 = dict(dtype=torch.float32, device=xdt.device)
-    # the state entering and the adjoint leaving each piece
-    h0 = torch.empty(b, nh, sp // P, hd, S, **f32)
+    QP = -(-P // 16) * 16
+    # C.B^T of every piece and group; the state entering and the adjoint
+    # leaving each piece
+    cb = torch.empty(b * (sp // P) * G * QP * QP, **f32)
+    h0 = torch.empty(b, sp // P, nh, hd, S, **f32)
     dh = torch.empty_like(h0)
     dx = torch.empty(b, sp, nh, hd, **f32)
     da = torch.empty(b, sp, nh, **f32)
@@ -244,9 +272,9 @@ def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     dCh = torch.empty_like(dBh)
     err = _bwd_launcher()(
         xdt.data_ptr(), a_log.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        dy.data_ptr(), dstate.data_ptr(), h0.data_ptr(), dh.data_ptr(),
-        dx.data_ptr(), da.data_ptr(), dBh.data_ptr(), dCh.data_ptr(), b, sp,
-        nh, hd, G, S, P, xdt.device.index,
+        dy.data_ptr(), dstate.data_ptr(), cb.data_ptr(), h0.data_ptr(),
+        dh.data_ptr(), dx.data_ptr(), da.data_ptr(), dBh.data_ptr(),
+        dCh.data_ptr(), b, sp, nh, hd, G, S, P, xdt.device.index,
         torch.cuda.current_stream(xdt.device).cuda_stream)
     build.check(err, "ssd_scan")
     global bwd_launches

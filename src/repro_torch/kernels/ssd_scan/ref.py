@@ -279,3 +279,80 @@ def ssd_scan_bwd_ref(xdt: torch.Tensor, a_log: torch.Tensor,
     da_log = da.permute(0, 2, 3, 1).reshape(b, c * P, nh)[:, :s]
     return (dxdt, da_log.to(a_log.dtype), group_sum(dB).to(Bm.dtype),
             group_sum(dC).to(Cm.dtype))
+
+
+def ssd_scan_bwd_3xtf32_ref(xdt: torch.Tensor, a_log: torch.Tensor,
+                            Bm: torch.Tensor, Cm: torch.Tensor,
+                            dy: torch.Tensor, dstate: torch.Tensor,
+                            chunk: int = 128
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """The backward kernel's arithmetic on the CPU, for the tests: the
+    pieces, sweeps and terms of ``ssd_scan_bwd_ref`` with every product
+    through ``mm_3xtf32`` (C.B^T once per group; the sweeps, dY X^T, M^T dY,
+    B dH^T, W B, W^T C, dY h0 and X dH per head), and the row sums, decays
+    and the cumulative sums of d acs in fp32 as the kernel takes them.
+    Same arguments and results as ``ssd_scan_bwd_ref``."""
+    b, s, nh, hd = xdt.shape
+    G, S = Bm.shape[2], Bm.shape[3]
+    hpg = nh // G
+    P = piece_len(min(chunk, s))
+    pad = (-s) % P
+    c = (s + pad) // P
+    mm = mm_3xtf32
+
+    def pieces(t, width):  # [b, s, heads, width] -> [b, heads, c, P, width]
+        t = F.pad(t.to(torch.float32), (0, 0, 0, 0, 0, pad))
+        return t.reshape(b, c, P, t.shape[2], width).permute(0, 3, 1, 2, 4)
+
+    X, dY = pieces(xdt, hd), pieces(dy, hd)
+    Bg, Cg = pieces(Bm, S), pieces(Cm, S)
+    CB = mm(Cg, Bg.transpose(-1, -2)).repeat_interleave(hpg, dim=1)
+    Bc, Cc = Bg.repeat_interleave(hpg, dim=1), Cg.repeat_interleave(hpg, dim=1)
+    a = F.pad(a_log.to(torch.float32), (0, 0, 0, pad)).reshape(b, c, P, nh)
+    acs = torch.cumsum(a.permute(0, 3, 1, 2), dim=-1)  # [b, nh, c, P]
+    e = torch.exp(acs)
+    dte = torch.exp(acs[..., -1:] - acs)
+    eT = torch.exp(acs[..., -1])
+
+    fwd = mm(X.transpose(-1, -2), dte[..., None] * Bc)  # [b, nh, c, hd, S]
+    rev = mm(dY.transpose(-1, -2), e[..., None] * Cc)
+    h = torch.zeros(b, nh, hd, S, dtype=torch.float32, device=xdt.device)
+    lam = dstate.to(torch.float32)
+    h0, dH = [], [None] * c
+    for i in range(c):
+        h0.append(h)
+        h = eT[:, :, i, None, None] * h + fwd[:, :, i]
+    for i in reversed(range(c)):
+        dH[i] = lam
+        lam = eT[:, :, i, None, None] * lam + rev[:, :, i]
+    h0, dH = torch.stack(h0, dim=2), torch.stack(dH, dim=2)
+
+    lower = torch.tril(torch.ones(P, P, dtype=torch.bool,
+                                  device=xdt.device))
+    L = torch.exp(torch.where(lower, acs[..., :, None] - acs[..., None, :],
+                              -torch.inf))
+    D = mm(dY, X.transpose(-1, -2))
+    M = L * CB
+    W = L * D
+    E = M * D
+    V = mm(dY, h0)
+    U = mm(X, dH)
+    dX = mm(M.transpose(-1, -2), dY) \
+        + dte[..., None] * mm(Bc, dH.transpose(-1, -2))
+    dC = mm(W, Bc) + e[..., None] * V
+    dB = mm(W.transpose(-1, -2), Cc) + dte[..., None] * U
+    Gk = dte * (Bc * U).sum(-1)
+    dacs = E.sum(-1) - E.sum(-2) + e * (Cc * V).sum(-1) - Gk
+    last = eT * (dH * h0).sum((-2, -1)) + Gk.sum(-1)
+    dacs = torch.cat([dacs[..., :-1], dacs[..., -1:] + last[..., None]], -1)
+    da = torch.flip(torch.cumsum(torch.flip(dacs, [-1]), -1), [-1])
+
+    def back(t):  # [b, nh, c, P, w] -> [b, s, nh, w]
+        return t.permute(0, 2, 3, 1, 4).reshape(b, c * P, nh, -1)[:, :s]
+
+    def group_sum(t):
+        return back(t).reshape(b, s, G, hpg, S).sum(3)
+
+    da_log = da.permute(0, 2, 3, 1).reshape(b, c * P, nh)[:, :s]
+    return back(dX), da_log, group_sum(dB), group_sum(dC)

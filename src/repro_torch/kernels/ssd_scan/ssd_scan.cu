@@ -62,37 +62,53 @@
 // ssd_chunked with XLA's autodiff.  It runs in pieces of P <= 64 steps (a
 // longer chunk as two pieces, as above).  Per (batch, head), with acs the
 // cumulative sum of a over a piece, e = exp(acs), dte = exp(acs_last -
-// acs) and eT = exp(acs_last):
-// - ssd_bwd_sweep_kernel: a sweep forward writes the state entering each
-//   piece (h' = eT h + X^T (dte B), from zero) and a sweep back the
-//   adjoint of the state leaving it (dH_prev = eT dH + dY^T (e C), from
-//   dstate) to fp32 scratch; one block per 16 state rows of a head.
-//   h_{t-1} is never rebuilt by dividing by exp(a_t), which underflows
-//   for large dt: the states are kept, and every exp is of a value <= 0.
-// - ssd_bwd_piece_kernel: one block per (piece, head, batch).  With
+// acs) and eT = exp(acs_last), three kernels, every product on the tensor
+// cores in 3xTF32 as in the forward:
+// - ssd_cb_kernel (the forward's): C.B^T of every piece and group, once
+//   per group and not per head, into fp32 scratch (512 KB at the shape
+//   below).
+// - ssd_bwd_sweep_kernel: a block per (head, direction, tile of at most
+//   64 x 64 of the [hd, S] state: 320 blocks, three per SM, at the shape
+//   below), the two directions at once.  Forward from zero it writes the
+//   state entering each piece (h' = eT h + X^T (dte B)); back from dstate
+//   the adjoint of the state leaving it (dH_prev = eT dH + dY^T (e C)).
+//   The tile stays in registers as the update's accumulators, a 16 x 32
+//   item per warp; the next piece's operands are copied with cp.async
+//   into a second stage while this one computes; the cumulative sum of a
+//   is a warp-shuffle scan.  h_{t-1} is never rebuilt by dividing by
+//   exp(a_t), which underflows for large dt: the states are kept, and
+//   every exp is of a value <= 0.
+// - ssd_bwd_piece_kernel: a block per (head, piece, batch).  With
 //   L[i, j] = exp(acs_i - acs_j) for j <= i, M = L * (C B^T),
-//   W = L * (dY X^T) and E = M * (dY X^T):
+//   D = dY X^T, W = L * D and E = M * D:
 //     dX = M^T dY + dte (B dH^T)      dC = W B + e (dY h0)
 //     dB = W^T C + dte (X dH)
 //     d acs = rowsum E - colsum E + e (C . dY h0) - dte (B . X dH), with
 //     eT <dH, h0> + sum_t dte_t (B_t . (X dH)_t) at the last step;
-//   da is d acs summed from the end of the piece.  dB and dC go out per
-//   head; the caller sums them over a group's heads.
+//   da is d acs summed from the end of the piece (warp shuffles).  E is
+//   never stored: its row and column sums, M and W are formed from D's
+//   fragments.  X, dY, B, M and W sit in shared memory (rows padded for
+//   conflict-free fragment loads), 108,564 bytes at the shape below, two
+//   blocks per SM; h0, dH and C go from global memory straight into the
+//   fragments of the warp that owns their columns, 16 bytes a load (the
+//   columns interleaved over a warp's four mma tiles).  dB and dC go out
+//   per head; the caller sums them over a group's heads.
 // Bound on an H100: operations.  Per piece and head dY X^T, M^T dY, W B
 // and W^T C over the lower triangle, the five [P, hd] x [hd, S] products
 // (the two sweeps, dY h0, X dH, B dH^T), and C B^T once per group: at
 // mamba2-2.7b's training shape (b 1, s 2048, nh 80, hd 64, G 1, S 128,
-// P 64) 17.5 GFLOP against 134 MB moved once.  In fp32 FMA outside the
-// tensor cores (67 TFLOP/s, the H100 SXM data sheet) the least time is
-// about 262 us, above the 40 us the bytes take.
-// What the simple design leaves for later: every product is an fp32 FMA
-// from shared memory, a warp-wide load per FMA (a quarter of the FMA
-// rate at best); C B^T is formed per head, not once per group; the
-// pieces' states make a round trip through HBM (2 x 84 MB at the shape
-// above); one 184 KB block per SM hides no load behind math.  The next
-// step is the forward's: the chunked products on the tensor cores in
-// 3xTF32, the states kept on chip.
-//
+// P 64) 17.53 GFLOP against 134 MB moved once.  In 3xTF32 that is 3 x
+// 17.53 GFLOP at 495 TFLOP/s, about 106 us (262 us as fp32 FMA at 67
+// TFLOP/s), above the 40 us the bytes take.
+// What still holds it (PERF.md): about 1.03 ms a call at that shape on an
+// H100 (sweeps 0.27, pieces 0.69, the caller's sums 0.07;
+// tools/kernel_ab.py).  The pieces' states make a round trip through HBM
+// (h0 and dH, 84 MB each, written and read), the per-head dB and dC
+// partials (168 MB) another before the caller's sums; the sweeps run 32
+// dependent pieces per block, and writing the states takes most of their
+// time; a piece block waits on its first copies and on its global loads
+// with only one other block on the SM to hide them.
+
 // C interface (ctypes): ssd_scan_f32 and ssd_scan_bwd_f32 return a
 // cudaError_t as int, 0 on success; the launches go to the caller's
 // stream, unsynchronised.
@@ -623,114 +639,6 @@ namespace {
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kSweepRows = 16;  // state rows (of hd) per sweep block
-constexpr int kSweepPer = kSweepRows * kMaxDim / kBwdThreads;
-
-// A piece's log decays (one load per thread), their cumulative sum in
-// order by one thread, and the decays the piece needs: e = exp(acs),
-// dte = exp(acs_last - acs) and exp(acs_last) in *eT.  Every thread of
-// the block calls it; it ends synchronised.  exp is only taken of values
-// <= 0.
-__device__ __forceinline__ void piece_decays(const float* a, int64_t stride,
-                                             int P, float* acs, float* e,
-                                             float* dte, float* eT) {
-  const int tid = threadIdx.x;
-  if (tid < P) acs[tid] = a[tid * stride];
-  __syncthreads();
-  if (tid == 0) {
-    float run = 0.f;
-    for (int t = 0; t < P; ++t) {
-      run += acs[t];
-      acs[t] = run;
-    }
-    *eT = expf(run);
-  }
-  __syncthreads();
-  if (tid < P) {
-    e[tid] = expf(acs[tid]);
-    dte[tid] = expf(acs[P - 1] - acs[tid]);
-  }
-  __syncthreads();
-}
-
-// The two sweeps over the pieces of one (batch, head), kSweepRows rows of
-// the [hd, S] state per block: forward from the zero state, writing the
-// state that enters each piece to h0; then back from dstate, writing the
-// adjoint of the state that leaves each piece to dh.  Every element of
-// the state is updated on its own, so its rows split over blocks freely.
-__global__ void __launch_bounds__(kBwdThreads)
-    ssd_bwd_sweep_kernel(const float* __restrict__ x,
-                         const float* __restrict__ a,
-                         const float* __restrict__ Bm,
-                         const float* __restrict__ Cm,
-                         const float* __restrict__ dy,
-                         const float* __restrict__ dstate,
-                         float* __restrict__ h0, float* __restrict__ dh,
-                         int s, int nh, int hd, int G, int S, int P) {
-  __shared__ float acs[kMaxChunk], e[kMaxChunk], dte[kMaxChunk], eT;
-  __shared__ float Xs[kMaxChunk][kSweepRows];
-  __shared__ float Bs[kMaxChunk][kMaxDim];
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kSweepRows;
-  const int h = blockIdx.y;
-  const int64_t bi = blockIdx.z;
-  const int g = h / (nh / G);
-  const int nc = s / P;
-  const int ne = kSweepRows * S;
-  const int64_t plane = static_cast<int64_t>(hd) * S;
-  float st[kSweepPer];
-  int64_t off[kSweepPer];  // each element's offset in a [hd, S] plane
-  bool mine[kSweepPer];
-#pragma unroll
-  for (int k = 0; k < kSweepPer; ++k) {
-    const int el = tid + k * kBwdThreads;
-    mine[k] = el < ne && r0 + el / S < hd;
-    off[k] = static_cast<int64_t>(r0 + el / S) * S + el % S;
-  }
-  for (int dir = 0; dir < 2; ++dir) {
-    // dir 0: h' = eT h + sum_t (dte_t x_t) B_t from zero;
-    // dir 1: dH_prev = eT dH + sum_t (e_t dy_t) C_t from dstate
-    const float* in = dir == 0 ? x : dy;
-    const float* vec = dir == 0 ? Bm : Cm;
-    float* save = (dir == 0 ? h0 : dh) + (bi * nh + h) * nc * plane;
-#pragma unroll
-    for (int k = 0; k < kSweepPer; ++k)
-      st[k] = (dir == 1 && mine[k]) ? dstate[(bi * nh + h) * plane + off[k]]
-                                    : 0.f;
-    for (int i = 0; i < nc; ++i) {
-      const int c = dir == 0 ? i : nc - 1 - i;
-      const int64_t t0 = bi * s + static_cast<int64_t>(c) * P;
-#pragma unroll
-      for (int k = 0; k < kSweepPer; ++k)
-        if (mine[k]) save[c * plane + off[k]] = st[k];
-      __syncthreads();  // the last piece's reads of shared memory are done
-      piece_decays(a + t0 * nh + h, nh, P, acs, e, dte, &eT);
-      // unrolled so that each thread has several loads in flight
-#pragma unroll 4
-      for (int idx = tid; idx < P * kSweepRows; idx += kBwdThreads) {
-        const int t = idx / kSweepRows, r = idx % kSweepRows;
-        Xs[t][r] = r0 + r < hd ? in[((t0 + t) * nh + h) * hd + r0 + r] : 0.f;
-      }
-#pragma unroll 8
-      for (int idx = tid; idx < P * S; idx += kBwdThreads) {
-        const int t = idx / S, n = idx % S;
-        Bs[t][n] = vec[((t0 + t) * G + g) * S + n];
-      }
-      __syncthreads();
-      const float* w = dir == 0 ? dte : e;
-#pragma unroll
-      for (int k = 0; k < kSweepPer; ++k) {
-        if (!mine[k]) continue;
-        const int el = tid + k * kBwdThreads;
-        const int r = el / S, n = el % S;
-        float acc = 0.f;
-        for (int t = 0; t < P; ++t) acc = fmaf(w[t] * Xs[t][r], Bs[t][n], acc);
-        st[k] = eT * st[k] + acc;
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // The sum over the 32 lanes of a warp, the same tree on every lane
 __device__ __forceinline__ float warp_sum(float v) {
@@ -739,213 +647,784 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory of one piece block, in floats: X and dY [P, hd + 1], B
-// and C [P, S + 1], the state [hd, S + 1] (h0, then dH), M, W and E
-// [P, P + 1], five [P] vectors (acs, e, dte, d acs, the G terms) and the
-// warps' partial sums with exp(acs_last).  The + 1 keeps the column reads
-// free of bank conflicts.
-inline size_t bwd_smem_floats(int P, int hd, int S) {
-  return static_cast<size_t>(2 * P * (hd + 1) + 2 * P * (S + 1) +
-                             hd * (S + 1) + 3 * P * (P + 1) + 5 * P +
-                             kBwdWarps + 1);
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Everything of one piece of one (batch, head): dX, da, and the head's
-// dB and dC partials (the caller sums them over a group's heads).
-__global__ void __launch_bounds__(kBwdThreads)
+// acc += A B for one 16 x 8 tile in 3xTF32, the three products into the
+// one accumulator (a warp here holds many tiles, which hide the latency)
+__device__ __forceinline__ void mma3(float acc[4], const uint32_t ah[4],
+                                     const uint32_t al[4],
+                                     const uint32_t bh[2],
+                                     const uint32_t bl[2]) {
+  mma_tf32(acc, al, bh);
+  mma_tf32(acc, ah, bl);
+  mma_tf32(acc, ah, bh);
+}
+
+// tile_mma with the three products of each tile into its one accumulator:
+// fewer registers, for a warp whose NT tiles give the latency enough
+// independent chains
+template <int NT, class LoadA, class LoadB>
+__device__ __forceinline__ void tile_mma_acc(float acc[NT][4], int K,
+                                             LoadA load_a, LoadB load_b) {
+#pragma unroll 4
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[4], al[4];
+    load_a(k0, ah, al);
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      uint32_t bh[2], bl[2];
+      if (load_b(u, k0, bh, bl)) mma3(acc[u], ah, al, bh, bl);
+    }
+  }
+}
+
+// Warp 0's part of a piece of P steps: acs the inclusive cumulative sum of
+// as[0, QP) (zero past P) by warp shuffles, e = exp(acs) and dte =
+// exp(acs_{P-1} - acs) (both zero past P), *eT = exp(acs_{P-1}).  exp is
+// only taken of values <= 0.
+__device__ __forceinline__ void piece_decays(const float* as, float* acs,
+                                             float* e, float* dte, float* eT,
+                                             int P, int QP, int lane) {
+  float carry = 0.f;
+  for (int base = 0; base < QP; base += 32) {
+    const int t = base + lane;
+    float v = t < QP ? as[t] : 0.f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float w = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += w;
+    }
+    v += carry;
+    if (t < QP) acs[t] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+  __syncwarp();
+  const float last = acs[P - 1];
+  for (int t = lane; t < QP; t += 32) {
+    e[t] = t < P ? expf(acs[t]) : 0.f;
+    dte[t] = t < P ? expf(last - acs[t]) : 0.f;
+  }
+  if (lane == 0) *eT = expf(last);
+}
+
+// v0, v1 to p[0], p[1] (columns n, n + 1 of a row of n_max): one 8-byte
+// store where both exist and the row is even, else what exists; streaming
+// (evict-first), as every output of the backward is read once, later
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1,
+                                           int n, int n_max) {
+  if (n + 1 < n_max && (n_max & 1) == 0) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v0, v1));
+  } else {
+    if (n < n_max) p[0] = v0;
+    if (n + 1 < n_max) p[1] = v1;
+  }
+}
+
+// The sweeps over the pieces of one (batch, head), one direction and one
+// tile of at most 64 x 64 of the [hd, S] state per block (blockIdx.x =
+// ((head * ks + row slice) * cs + column slice) * 2 + direction):
+//   forward, from zero:      h' = eT h + X^T (dte B), saving h0 per piece;
+//   back, from dstate:  dH_prev = eT dH + dY^T (e C), saving dH per piece.
+// The tile lives in registers as the accumulators of the update, one
+// 16 x 32 item per warp, as the forward kernel keeps its state; the next
+// piece's B (or C) columns, X (or dY) rows and a are copied with cp.async
+// into the other of two stages while this one computes.
+__global__ void __launch_bounds__(kBwdThreads, 3)
+    ssd_bwd_sweep_kernel(const float* __restrict__ x,
+                         const float* __restrict__ a,
+                         const float* __restrict__ Bm,
+                         const float* __restrict__ Cm,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ dstate,
+                         float* __restrict__ h0, float* __restrict__ dh,
+                         int s, int nh, int hd, int G, int S, int P, int ks,
+                         int cs) {
+  extern __shared__ __align__(16) float smem[];
+  const int dir = blockIdx.x & 1;
+  int rest = blockIdx.x >> 1;
+  const int crank = rest % cs;
+  rest /= cs;
+  const int rrank = rest % ks;
+  const int h = rest / ks;
+  const int64_t bi = blockIdx.y;
+  const int g = h / (nh / G);
+  const int R = (hd + ks - 1) / ks;
+  const int CW = up((S + cs - 1) / cs, 8);
+  const int p0 = rrank * R;
+  const int c0 = crank * CW;
+  const int rows = min(R, hd - p0);
+  const int cols = min(CW, S - c0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int QP = up(P, 16);
+  const int RP = up(R, 16);
+  const int ldv = CW + 8;  // B or C rows (the tile's columns)
+  const int ldy = RP + 8;  // X or dY rows (the tile's rows)
+  const int stage = QP * ldv + QP * ldy + QP;
+  float* acs = smem + 2 * stage;  // [QP]
+  float* e = acs + QP;            // [QP]
+  float* dte = e + QP;            // [QP]
+  float* eT = dte + QP;           // [1]
+  for (int i = tid; i < 2 * stage + 3 * QP + 1; i += kBwdThreads) smem[i] = 0.f;
+  __syncthreads();
+
+  const int nc = s / P;
+  const float* in = dir ? dy : x;
+  const float* vin = dir ? Cm : Bm;
+  const int64_t xrow = static_cast<int64_t>(nh) * hd;
+  const int64_t brow = static_cast<int64_t>(G) * S;
+  const int64_t plane = static_cast<int64_t>(hd) * S;
+  const bool vec_v = S % 4 == 0 && CW % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(vin) & 15) == 0;
+  const bool vec_y = hd % 4 == 0 && R % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(in) & 15) == 0;
+  float* save = (dir ? dh : h0) + (bi * nc * nh + h) * plane +
+                static_cast<int64_t>(p0) * S + c0;
+
+  auto issue = [&](int i) {
+    const int c = dir ? nc - 1 - i : i;
+    float* Vs = smem + (i & 1) * stage;
+    float* Ys = Vs + QP * ldv;
+    float* as = Ys + QP * ldy;
+    const int64_t t0 = bi * s + static_cast<int64_t>(c) * P;
+    copy_rows<kBwdWarps>(Vs, ldv, vin + t0 * brow + g * S + c0, brow, P, P,
+                         cols, vec_v, warp, lane);
+    copy_rows<kBwdWarps>(Ys, ldy, in + (t0 * nh + h) * hd + p0, xrow, P, P,
+                         rows, vec_y, warp, lane);
+    copy_steps(as, a + t0 * nh + h, nh, P, QP, tid);
+    cp_async_commit();
+  };
+
+  // this warp's item: tile rows 16 mt.., columns 32 gq.. (one item per
+  // warp: at most 4 x 2 of them)
+  const int ngu = (CW + 31) / 32;
+  const bool mine = warp < (RP / 16) * ngu;
+  const int mt = warp / ngu;
+  const int gq = warp - mt * ngu;
+  float st[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int p = 16 * mt + gid + 8 * hf;
+      const int n = 32 * gq + 8 * u + 2 * tig;
+      float v0 = 0.f, v1 = 0.f;
+      if (dir == 1 && mine && p < rows) {
+        const float* src = dstate + (bi * nh + h) * plane +
+                           static_cast<int64_t>(p0 + p) * S + c0 + n;
+        if (n < cols) v0 = src[0];
+        if (n + 1 < cols) v1 = src[1];
+      }
+      st[u][2 * hf] = v0;
+      st[u][2 * hf + 1] = v1;
+    }
+
+  issue(0);
+  if (nc > 1) issue(1);
+  for (int i = 0; i < nc; ++i) {
+    // the state entering piece c (forward) or leaving it (back)
+    const int c = dir ? nc - 1 - i : i;
+    float* out = save + static_cast<int64_t>(c) * nh * plane;
+    if (mine) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = 16 * mt + gid + 8 * hf;
+          const int n = 32 * gq + 8 * u + 2 * tig;
+          if (p < rows && n < cols)
+            store_pair(out + static_cast<int64_t>(p) * S + n,
+                       st[u][2 * hf], st[u][2 * hf + 1], c0 + n, S);
+        }
+    }
+    if (i + 1 < nc)
+      cp_async_wait_one();
+    else
+      cp_async_wait_all();
+    __syncthreads();
+    const float* Vs = smem + (i & 1) * stage;
+    const float* Ys = Vs + QP * ldv;
+    if (warp == 0) piece_decays(Ys + QP * ldy, acs, e, dte, eT, P, QP, lane);
+    __syncthreads();
+    if (mine) {
+      const float decay = *eT;
+      const float* w = dir ? e : dte;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) st[u][v] *= decay;
+      tile_mma_acc<4>(
+          st, QP,
+          [&](int k0, uint32_t* ah, uint32_t* al) {
+            load_a_t(Ys, ldy, 16 * mt, k0, gid, tig, ah, al);
+          },
+          [&](int u, int k0, uint32_t* bh, uint32_t* bl) {
+            const int n0 = 32 * gq + 8 * u;
+            if (n0 >= CW) return false;
+            split_tf32(w[k0 + tig] * Vs[(k0 + tig) * ldv + n0 + gid], bh[0],
+                       bl[0]);
+            split_tf32(w[k0 + tig + 4] * Vs[(k0 + tig + 4) * ldv + n0 + gid],
+                       bh[1], bl[1]);
+            return true;
+          });
+    }
+    __syncthreads();  // this stage and the decays are free
+    if (i + 2 < nc) issue(i + 2);
+  }
+}
+
+// (row slices, column slices) of the sweeps' state tiles: at most 64 x 64
+inline int sweep_ks(int hd) { return hd > 64 ? 2 : 1; }
+inline int sweep_cs(int S) { return S > 64 ? 2 : 1; }
+
+inline size_t bwd_sweep_floats(int P, int hd, int S) {
+  const size_t QP = (P + 15) / 16 * 16;
+  const int ks = sweep_ks(hd), cs = sweep_cs(S);
+  const size_t ldv = ((S + cs - 1) / cs + 7) / 8 * 8 + 8;
+  const size_t ldy = ((hd + ks - 1) / ks + 15) / 16 * 16 + 8;
+  return 2 * (QP * ldv + QP * ldy + QP) + 3 * QP + 1;
+}
+
+// Shared memory of one piece block, in floats: X and dY [QP, hd32 + 4], B
+// [QP, S32 + 4] (hd32, S32: rounded up to 32), M and W [QP, QP + 4]; a,
+// acs, e and dte [QP]; the row and column sums of E per 16-wide tile, the
+// C.V and B.U sums per 32-column strip of S [4, QP] each; each strip's
+// <dH, h0> and exp(acs_last).
+inline size_t bwd_piece_floats(int P, int hd, int S) {
+  const size_t QP = (P + 15) / 16 * 16;
+  const size_t ldx = (hd + 31) / 32 * 32 + 4;
+  const size_t ldb = (S + 31) / 32 * 32 + 4;
+  return QP * (2 * ldx + ldb + 2 * (QP + 4) + 20) + 5;
+}
+
+// p[c .. c + 3] of a row of n floats, zero past n: one 16-byte load where
+// the row allows it (vec: n and the row's start a multiple of 4 floats)
+__device__ __forceinline__ float4 ld4(const float* p, int c, int n, bool vec) {
+  if (vec && c + 3 < n) return *reinterpret_cast<const float4*>(p + c);
+  return make_float4(c < n ? p[c] : 0.f, c + 1 < n ? p[c + 1] : 0.f,
+                     c + 2 < n ? p[c + 2] : 0.f, c + 3 < n ? p[c + 3] : 0.f);
+}
+
+// v to p[c .. c + 3] of a row of n floats, as far as the row goes;
+// streaming, as store_pair
+__device__ __forceinline__ void st4(float* p, int c, int n, bool vec,
+                                    float4 v) {
+  if (vec && c + 3 < n) {
+    __stcs(reinterpret_cast<float4*>(p + c), v);
+  } else {
+    if (c < n) p[c] = v.x;
+    if (c + 1 < n) p[c + 1] = v.y;
+    if (c + 2 < n) p[c + 2] = v.z;
+    if (c + 3 < n) p[c + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// Everything of one piece of one (batch, head) (blockIdx.x the head, so
+// that the blocks in flight read neighbouring planes of h0 and dH), with
+// L[i, j] = exp(acs_i - acs_j) for j <= i, M = L * (C B^T) (C.B^T from the
+// group's scratch tile), D = dY X^T, W = L * D and E = M * D:
+//   dX = M^T dY + dte (B dH^T)     dC = W B + e (dY h0)
+//   dB = W^T C + dte (X dH)
+//   d acs = rowsum E - colsum E + e (C . dY h0) - dte (B . X dH), with
+//   eT <dH, h0> + sum_t dte_t (B_t . (X dH)_t) at the last step;
+// da is d acs summed from the end of the piece.  X, dY, B, M and W sit in
+// shared memory (the operands that every warp reads); h0, dH and C go from
+// global memory straight into the fragments of the warp that owns their
+// columns, 16 bytes a load: a warp's 32 columns are interleaved over its
+// four 8-column mma tiles (column 4 j + u of the strip is column j of tile
+// u), so that the four tiles' values of one row sit side by side, and for
+// B dH^T each 16-deep block of K is permuted alike (lane tig's four
+// k-values are n = 4 tig .. 4 tig + 3).  dB and dC go out per head.
+__global__ void __launch_bounds__(kBwdThreads, 2)
     ssd_bwd_piece_kernel(const float* __restrict__ x,
                          const float* __restrict__ a,
                          const float* __restrict__ Bm,
                          const float* __restrict__ Cm,
                          const float* __restrict__ dy,
+                         const float* __restrict__ cb,
                          const float* __restrict__ h0,
                          const float* __restrict__ dh,
                          float* __restrict__ dx, float* __restrict__ da,
                          float* __restrict__ dBh, float* __restrict__ dCh,
                          int s, int nh, int hd, int G, int S, int P) {
-  extern __shared__ float smem[];
-  const int XW = hd + 1, SW = S + 1, PW = P + 1;
-  float* Xs = smem;
-  float* dYs = Xs + P * XW;
-  float* Bs = dYs + P * XW;
-  float* Cs = Bs + P * SW;
-  float* Hs = Cs + P * SW;
-  float* Ms = Hs + hd * SW;
-  float* Ws = Ms + P * PW;
-  float* Es = Ws + P * PW;
-  float* acs = Es + P * PW;
-  float* e = acs + P;
-  float* dte = e + P;
-  float* dacs = dte + P;
-  float* gk = dacs + P;
-  float* part = gk + P;  // kBwdWarps partial sums, then exp(acs_last)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c = blockIdx.x, h = blockIdx.y;
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x;
+  const int c = blockIdx.y;
   const int64_t bi = blockIdx.z;
   const int g = h / (nh / G);
   const int nc = s / P;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int QP = up(P, 16);
+  const int T = QP / 16;  // row tiles of a piece, at most 4
+  const int HK = up(hd, 8);
+  const int ldx = up(hd, 32) + 4;
+  const int ldb = up(S, 32) + 4;
+  const int ldm = QP + 4;
+  const int NS = (S + 31) / 32;   // 32-column strips of S, at most 4
+  const int NP = (hd + 31) / 32;  // of hd
+  float* Xs = smem;             // [QP, ldx]
+  float* dYs = Xs + QP * ldx;   // [QP, ldx]
+  float* Bs = dYs + QP * ldx;   // [QP, ldb]
+  float* Ms = Bs + QP * ldb;    // [QP, ldm] C.B^T, then M
+  float* Ws = Ms + QP * ldm;    // [QP, ldm]
+  float* as = Ws + QP * ldm;    // [QP]
+  float* acs = as + QP;         // [QP]
+  float* e = acs + QP;          // [QP]
+  float* dte = e + QP;          // [QP]
+  float* rowp = dte + QP;       // [4, QP] rows of E, per 16-column tile
+  float* colp = rowp + 4 * QP;  // [4, QP] columns of E, per 16-row tile
+  float* fp = colp + 4 * QP;    // [4, QP] C . V, per strip of S
+  float* gp = fp + 4 * QP;      // [4, QP] B . U, per strip of S
+  float* hp = gp + 4 * QP;      // [4] <dH, h0>, per strip of S
+  float* eT = hp + 4;           // [1]
+  // the pad rows and columns of X, dY and B, which the copies leave, are
+  // zero
+  for (int i = tid; i < (QP - P) * (2 * ldx + ldb); i += kBwdThreads) {
+    const int r = i / (2 * ldx + ldb), k = i - r * (2 * ldx + ldb);
+    (k < 2 * ldx ? Xs + (k / ldx) * QP * ldx + (P + r) * ldx + k % ldx
+                 : Bs + (P + r) * ldb + k - 2 * ldx)[0] = 0.f;
+  }
+  for (int i = tid; i < P * (2 * (ldx - hd) + ldb - S); i += kBwdThreads) {
+    const int r = i / (2 * (ldx - hd) + ldb - S);
+    const int k = i - r * (2 * (ldx - hd) + ldb - S);
+    if (k < 2 * (ldx - hd))
+      (k < ldx - hd ? Xs : dYs)[r * ldx + hd + k % (ldx - hd)] = 0.f;
+    else
+      Bs[r * ldb + S + k - 2 * (ldx - hd)] = 0.f;
+  }
+  __syncthreads();
+
   const int64_t t0 = bi * s + static_cast<int64_t>(c) * P;
+  const int64_t xrow = static_cast<int64_t>(nh) * hd;
+  const int64_t brow = static_cast<int64_t>(G) * S;
   const int64_t plane = static_cast<int64_t>(hd) * S;
-  const float* h0_p = h0 + ((bi * nh + h) * nc + c) * plane;
-  const float* dh_p = dh + ((bi * nh + h) * nc + c) * plane;
-
-  piece_decays(a + t0 * nh + h, nh, P, acs, e, dte, part + kBwdWarps);
-  // the loads are unrolled so that each thread has several in flight
-#pragma unroll 8
-  for (int idx = tid; idx < P * hd; idx += kBwdThreads) {
-    const int t = idx / hd, p = idx % hd;
-    const int64_t o = ((t0 + t) * nh + h) * hd + p;
-    Xs[t * XW + p] = x[o];
-    dYs[t * XW + p] = dy[o];
-  }
-#pragma unroll 8
-  for (int idx = tid; idx < P * S; idx += kBwdThreads) {
-    const int t = idx / S, n = idx % S;
-    const int64_t o = ((t0 + t) * G + g) * S + n;
-    Bs[t * SW + n] = Bm[o];
-    Cs[t * SW + n] = Cm[o];
-  }
-#pragma unroll 8
-  for (int idx = tid; idx < hd * S; idx += kBwdThreads)
-    Hs[(idx / S) * SW + idx % S] = h0_p[idx];
+  const bool vec_x = hd % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  const bool vec_b = S % 4 == 0 && (reinterpret_cast<uintptr_t>(Bm) & 15) == 0;
+  copy_rows<kBwdWarps>(Xs, ldx, x + (t0 * nh + h) * hd, xrow, P, P, hd, vec_x,
+                       warp, lane);
+  copy_rows<kBwdWarps>(dYs, ldx, dy + (t0 * nh + h) * hd, xrow, P, P, hd,
+                       vec_x, warp, lane);
+  copy_rows<kBwdWarps>(Ms, ldm, cb + ((bi * nc + c) * G + g) * QP * QP, QP,
+                       QP, QP, QP, true, warp, lane);
+  copy_steps(as, a + t0 * nh + h, nh, P, QP, tid);
+  cp_async_commit();
+  // B, which phase 1 does not read, in a group of its own
+  copy_rows<kBwdWarps>(Bs, ldb, Bm + t0 * brow + g * S, brow, P, P, S, vec_b,
+                       warp, lane);
+  cp_async_commit();
+  const float* h0p = h0 + ((bi * nc + c) * nh + h) * plane;
+  const float* dhp = dh + ((bi * nc + c) * nh + h) * plane;
+  const float* Cg = Cm + t0 * brow + g * S;
+  // 16-byte global access: rows of S (h0, dH, C, dB, dC) and of hd (dX)
+  const bool vec_s = S % 4 == 0 && (reinterpret_cast<uintptr_t>(h0) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(dh) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(Cm) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(dBh) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(dCh) & 15) == 0;
+  const bool vec_d = hd % 4 == 0 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
+  cp_async_wait_one();
+  __syncthreads();
+  if (warp == 0) piece_decays(as, acs, e, dte, eT, P, QP, lane);
   __syncthreads();
 
-  // M = L * (C B^T), W = L * (dY X^T), E = M * (dY X^T), zero above the
-  // diagonal
-  for (int idx = tid; idx < P * P; idx += kBwdThreads) {
-    const int i = idx / P, j = idx % P;
-    float m = 0.f, w = 0.f, en = 0.f;
-    if (j <= i) {
-      float cb = 0.f, d = 0.f;
-      for (int n = 0; n < S; ++n) cb = fmaf(Cs[i * SW + n], Bs[j * SW + n], cb);
-      for (int p = 0; p < hd; ++p) d = fmaf(dYs[i * XW + p], Xs[j * XW + p], d);
-      const float L = expf(acs[i] - acs[j]);
-      m = L * cb;
-      w = L * d;
-      en = m * d;
+  // 1. D = dY X^T over the lower 16 x 16 tiles; M = L * (C B^T) and
+  // W = L * D in place in shared memory; the row and column sums of
+  // E = M * D per tile
+  for (int it = warp; it < T * (T + 1) / 2; it += kBwdWarps) {
+    int mt = 0;
+    while ((mt + 1) * (mt + 2) / 2 <= it) ++mt;
+    const int nt = it - mt * (mt + 1) / 2;
+    float d[2][4] = {};
+    tile_mma<2>(
+        d, HK,
+        [&](int k0, uint32_t* ah, uint32_t* al) {
+          load_a(dYs, ldx, 16 * mt, k0, gid, tig, ah, al);
+        },
+        [&](int u, int k0, uint32_t* bh, uint32_t* bl) {
+          load_b_nk(Xs, ldx, 16 * nt + 8 * u, k0, gid, tig, bh, bl);
+          return true;
+        });
+    float rs[2] = {0.f, 0.f};
+    float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int i = 16 * mt + gid + 8 * (v >> 1);
+        const int j = 16 * nt + 8 * u + 2 * tig + (v & 1);
+        const float L = j <= i ? expf(acs[i] - acs[j]) : 0.f;
+        const float m = L * Ms[i * ldm + j];
+        const float en = m * d[u][v];
+        Ms[i * ldm + j] = m;
+        Ws[i * ldm + j] = L * d[u][v];
+        rs[v >> 1] += en;
+        cs[u][v & 1] += en;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
     }
-    Ms[i * PW + j] = m;
-    Ws[i * PW + j] = w;
-    Es[i * PW + j] = en;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          cs[u][v] += __shfl_xor_sync(0xffffffffu, cs[u][v], o);
+    if (tig == 0) {
+      rowp[nt * QP + 16 * mt + gid] = rs[0];
+      rowp[nt * QP + 16 * mt + gid + 8] = rs[1];
+    }
+    if (gid == 0) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v)
+          colp[mt * QP + 16 * nt + 8 * u + 2 * tig + v] = cs[u][v];
+    }
   }
-  // <dH, h0> over the piece: per thread, per warp, then the warps in order
-  float hdot = 0.f;
-#pragma unroll 8
-  for (int idx = tid; idx < hd * S; idx += kBwdThreads)
-    hdot = fmaf(dh_p[idx], Hs[(idx / S) * SW + idx % S], hdot);
-  hdot = warp_sum(hdot);
-  if (lane == 0) part[warp] = hdot;
+  cp_async_wait_all();
   __syncthreads();
 
-  // d acs = row sum of E - column sum of E
-  for (int k = tid; k < P; k += kBwdThreads) {
-    float row = 0.f, col = 0.f;
-    for (int j = 0; j < P; ++j) row += Es[k * PW + j];
-    for (int i = 0; i < P; ++i) col += Es[i * PW + k];
-    dacs[k] = row - col;
-  }
-  __syncthreads();
-
-  // dC = W B + e (dY h0), and d acs += e (C . dY h0); a warp per row
-  for (int i = warp; i < P; i += kBwdWarps) {
-    float v[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int p = 0; p < hd; ++p) {
-      const float d = dYs[i * XW + p];
+  // 2. dX = dte (B dH^T) + M^T dY: a warp per 16 rows and 32 columns of
+  // hd; dH from global memory, four k-values of a row per load
+  for (int it = warp; it < T * NP; it += kBwdWarps) {
+    const int jt = it / NP;
+    const int pc = 32 * (it - jt * NP);
+    float acc[4][4] = {};
+#pragma unroll 2
+    for (int kb = 0; kb < S; kb += 16) {
+      float4 hv[4];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (lane + 32 * m < S) v[m] = fmaf(d, Hs[p * SW + lane + 32 * m], v[m]);
-    }
-    for (int j = 0; j <= i; ++j) {
-      const float w = Ws[i * PW + j];
+      for (int u = 0; u < 4; ++u) {
+        const int p = pc + 4 * gid + u;
+        hv[u] = p < hd ? ld4(dhp + p * S, kb + 4 * tig, S, vec_s)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float4 r0 = *reinterpret_cast<const float4*>(
+          Bs + (16 * jt + gid) * ldb + kb + 4 * tig);
+      const float4 r1 = *reinterpret_cast<const float4*>(
+          Bs + (16 * jt + gid + 8) * ldb + kb + 4 * tig);
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (lane + 32 * m < S)
-          t1[m] = fmaf(w, Bs[j * SW + lane + 32 * m], t1[m]);
-    }
-    float f = 0.f;
+      for (int half = 0; half < 2; ++half) {
+        uint32_t ah[4], al[4];
+        split_tf32(half ? r0.z : r0.x, ah[0], al[0]);
+        split_tf32(half ? r1.z : r1.x, ah[1], al[1]);
+        split_tf32(half ? r0.w : r0.y, ah[2], al[2]);
+        split_tf32(half ? r1.w : r1.y, ah[3], al[3]);
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int n = lane + 32 * m;
-      if (n < S) {
-        dCh[((t0 + i) * nh + h) * S + n] = t1[m] + e[i] * v[m];
-        f = fmaf(Cs[i * SW + n], v[m], f);
+        for (int u = 0; u < 4; ++u) {
+          uint32_t bh[2], bl[2];
+          split_tf32(half ? hv[u].z : hv[u].x, bh[0], bl[0]);
+          split_tf32(half ? hv[u].w : hv[u].y, bh[1], bl[1]);
+          mma3(acc[u], ah, al, bh, bl);
+        }
       }
     }
-    f = warp_sum(f);
-    if (lane == 0) dacs[i] += e[i] * f;
-  }
-  __syncthreads();
-#pragma unroll 8
-  for (int idx = tid; idx < hd * S; idx += kBwdThreads)
-    Hs[(idx / S) * SW + idx % S] = dh_p[idx];
-  __syncthreads();
-
-  // dB = W^T C + dte (X dH), and the G terms dte (B . X dH); a warp per row
-  for (int j = warp; j < P; j += kBwdWarps) {
-    float u[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int p = 0; p < hd; ++p) {
-      const float xv = Xs[j * XW + p];
+    const float d0 = dte[16 * jt + gid];
+    const float d1 = dte[16 * jt + gid + 8];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (lane + 32 * m < S)
-          u[m] = fmaf(xv, Hs[p * SW + lane + 32 * m], u[m]);
+    for (int u = 0; u < 4; ++u) {
+      acc[u][0] *= d0;
+      acc[u][1] *= d0;
+      acc[u][2] *= d1;
+      acc[u][3] *= d1;
     }
-    for (int i = j; i < P; ++i) {
-      const float w = Ws[i * PW + j];
+    for (int k0 = 16 * jt; k0 < QP; k0 += 8) {  // M[i][j] = 0 for i < j
+      uint32_t ah[4], al[4];
+      load_a_t(Ms, ldm, 16 * jt, k0, gid, tig, ah, al);
+      const float4 b0 = *reinterpret_cast<const float4*>(
+          dYs + (k0 + tig) * ldx + pc + 4 * gid);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          dYs + (k0 + tig + 4) * ldx + pc + 4 * gid);
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (lane + 32 * m < S)
-          t1[m] = fmaf(w, Cs[i * SW + lane + 32 * m], t1[m]);
-    }
-    float gs = 0.f;
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int n = lane + 32 * m;
-      if (n < S) {
-        dBh[((t0 + j) * nh + h) * S + n] = t1[m] + dte[j] * u[m];
-        gs = fmaf(Bs[j * SW + n], u[m], gs);
+      for (int u = 0; u < 4; ++u) {
+        uint32_t bh[2], bl[2];
+        split_tf32(comp(b0, u), bh[0], bl[0]);
+        split_tf32(comp(b1, u), bh[1], bl[1]);
+        mma3(acc[u], ah, al, bh, bl);
       }
     }
-    gs = warp_sum(gs);
-    if (lane == 0) gk[j] = dte[j] * gs;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int j = 16 * jt + gid + 8 * hf;
+        if (j < P)
+          st4(dx + ((t0 + j) * nh + h) * hd, pc + 8 * tig + 4 * q, hd, vec_d,
+              make_float4(acc[0][2 * hf + q], acc[1][2 * hf + q],
+                          acc[2][2 * hf + q], acc[3][2 * hf + q]));
+      }
   }
 
-  // dX = M^T dY + dte (B dH^T); a warp per row, its lanes over hd
-  for (int j = warp; j < P; j += kBwdWarps) {
-    float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = j; i < P; ++i) {
-      const float mij = Ms[i * PW + j];
+  // 3. dC = e (dY h0) + W B, and the C . (dY h0) sums: a warp per 32
+  // rows and 32 columns of S; h0 and C from global memory
+  for (int it = warp; it < 2 * NS; it += kBwdWarps) {
+    const int ns = it >> 1;
+    const int m0 = 2 * (it & 1);  // first of the warp's two row tiles
+    const int nc0 = 32 * ns;
+    if (m0 >= T) continue;
+    float acc[2][4][4] = {};
+    for (int kb = 0; kb < HK; kb += 32) {
+      float4 hv[4][2];
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (lane + 32 * m < hd)
-          t1[m] = fmaf(mij, dYs[i * XW + lane + 32 * m], t1[m]);
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = kb + 8 * kk + tig + 4 * hf;
+          hv[kk][hf] = p < hd ? ld4(h0p + p * S, nc0 + 4 * gid, S, vec_s)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k0 = kb + 8 * kk;
+        if (k0 >= HK) break;
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          split_tf32(comp(hv[kk][0], u), bh[u][0], bl[u][0]);
+          split_tf32(comp(hv[kk][1], u), bh[u][1], bl[u][1]);
+        }
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm) {
+          if (m0 + mm >= T) break;
+          uint32_t ah[4], al[4];
+          load_a(dYs, ldx, 16 * (m0 + mm), k0, gid, tig, ah, al);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) mma3(acc[mm][u], ah, al, bh[u], bl[u]);
+        }
+      }
     }
-    for (int n = 0; n < S; ++n) {
-      const float bv = Bs[j * SW + n];
+    // the C . V sums of each row over the strip, then V scaled by e
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (lane + 32 * m < hd)
-          t2[m] = fmaf(bv, Hs[(lane + 32 * m) * SW + n], t2[m]);
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * (m0 + mm) + gid + 8 * hf;
+        float f = 0.f;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float4 cv = i < P ? ld4(Cg + i * brow, nc0 + 8 * tig + 4 * q,
+                                        S, vec_s)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            f += comp(cv, u) * acc[mm][u][2 * hf + q];
+            acc[mm][u][2 * hf + q] *= e[i];
+          }
+        }
+        f += __shfl_xor_sync(0xffffffffu, f, 1);
+        f += __shfl_xor_sync(0xffffffffu, f, 2);
+        if (tig == 0 && m0 + mm < T) fp[ns * QP + i] = f;
+      }
+    for (int k0 = 0; k0 < 16 * min(m0 + 2, T); k0 += 8) {  // W[i][j] = 0, j > i
+      const float4 b0 = *reinterpret_cast<const float4*>(
+          Bs + (k0 + tig) * ldb + nc0 + 4 * gid);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          Bs + (k0 + tig + 4) * ldb + nc0 + 4 * gid);
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        split_tf32(comp(b0, u), bh[u][0], bl[u][0]);
+        split_tf32(comp(b1, u), bh[u][1], bl[u][1]);
+      }
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        const int m = m0 + mm;
+        if (m >= T || k0 >= 16 * m + 16) continue;
+        uint32_t ah[4], al[4];
+        load_a(Ws, ldm, 16 * m, k0, gid, tig, ah, al);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mma3(acc[mm][u], ah, al, bh[u], bl[u]);
+      }
     }
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
-      if (lane + 32 * m < hd)
-        dx[((t0 + j) * nh + h) * hd + lane + 32 * m] = t1[m] + dte[j] * t2[m];
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 16 * (m0 + mm) + gid + 8 * hf;
+          if (m0 + mm < T && i < P)
+            st4(dCh + ((t0 + i) * nh + h) * S, nc0 + 8 * tig + 4 * q, S, vec_s,
+                make_float4(acc[mm][0][2 * hf + q], acc[mm][1][2 * hf + q],
+                            acc[mm][2][2 * hf + q], acc[mm][3][2 * hf + q]));
+        }
+  }
+
+  // 4. dB = dte (X dH) + W^T C, the B . (X dH) sums and <dH, h0>: the same
+  // warps' tiles; dH, h0 and C from global memory
+  for (int it = warp; it < 2 * NS; it += kBwdWarps) {
+    const int ns = it >> 1;
+    const int m0 = 2 * (it & 1);
+    const int nc0 = 32 * ns;
+    if (m0 >= T) continue;
+    float acc[2][4][4] = {};
+    float hsum = 0.f;
+    for (int kb = 0; kb < HK; kb += 32) {
+      float4 dv[4][2];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = kb + 8 * kk + tig + 4 * hf;
+          dv[kk][hf] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (p < hd) {
+            dv[kk][hf] = ld4(dhp + p * S, nc0 + 4 * gid, S, vec_s);
+            if (m0 == 0) {  // each element of the plane once
+              const float4 hw = ld4(h0p + p * S, nc0 + 4 * gid, S, vec_s);
+              hsum += dv[kk][hf].x * hw.x + dv[kk][hf].y * hw.y +
+                      dv[kk][hf].z * hw.z + dv[kk][hf].w * hw.w;
+            }
+          }
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k0 = kb + 8 * kk;
+        if (k0 >= HK) break;
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          split_tf32(comp(dv[kk][0], u), bh[u][0], bl[u][0]);
+          split_tf32(comp(dv[kk][1], u), bh[u][1], bl[u][1]);
+        }
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm) {
+          if (m0 + mm >= T) break;
+          uint32_t ah[4], al[4];
+          load_a(Xs, ldx, 16 * (m0 + mm), k0, gid, tig, ah, al);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) mma3(acc[mm][u], ah, al, bh[u], bl[u]);
+        }
+      }
+    }
+    hsum = warp_sum(hsum);
+    if (lane == 0 && m0 == 0) hp[ns] = hsum;
+    // the B . U sums of each row over the strip, then U scaled by dte
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * (m0 + mm) + gid + 8 * hf;
+        float gsum = 0.f;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = nc0 + 8 * tig + 4 * q;
+          const float4 bv = m0 + mm < T
+                                ? *reinterpret_cast<const float4*>(
+                                      Bs + i * ldb + n)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (n + u < S) gsum += comp(bv, u) * acc[mm][u][2 * hf + q];
+            acc[mm][u][2 * hf + q] *= dte[i];
+          }
+        }
+        gsum += __shfl_xor_sync(0xffffffffu, gsum, 1);
+        gsum += __shfl_xor_sync(0xffffffffu, gsum, 2);
+        if (tig == 0 && m0 + mm < T) gp[ns * QP + i] = gsum;
+      }
+    for (int kb = 16 * m0; kb < QP; kb += 32) {  // W[i][j] = 0 for i < j
+      float4 cv[4][2];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = kb + 8 * kk + tig + 4 * hf;
+          cv[kk][hf] = i < P ? ld4(Cg + i * brow, nc0 + 4 * gid, S, vec_s)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k0 = kb + 8 * kk;
+        if (k0 >= QP) break;
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          split_tf32(comp(cv[kk][0], u), bh[u][0], bl[u][0]);
+          split_tf32(comp(cv[kk][1], u), bh[u][1], bl[u][1]);
+        }
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm) {
+          const int m = m0 + mm;
+          if (m >= T || 16 * m >= k0 + 8) continue;
+          uint32_t ah[4], al[4];
+          load_a_t(Ws, ldm, 16 * m, k0, gid, tig, ah, al);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) mma3(acc[mm][u], ah, al, bh[u], bl[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 16 * (m0 + mm) + gid + 8 * hf;
+          if (m0 + mm < T && i < P)
+            st4(dBh + ((t0 + i) * nh + h) * S, nc0 + 8 * tig + 4 * q, S, vec_s,
+                make_float4(acc[mm][0][2 * hf + q], acc[mm][1][2 * hf + q],
+                            acc[mm][2][2 * hf + q], acc[mm][3][2 * hf + q]));
+        }
   }
   __syncthreads();
 
-  // da: d acs minus the G terms, with the last step's own terms, summed
-  // from the end of the piece
-  if (tid == 0) {
-    float hsum = 0.f, gsum = 0.f;
-    for (int w = 0; w < kBwdWarps; ++w) hsum += part[w];
-    for (int t = 0; t < P; ++t) gsum += gk[t];
-    float run = 0.f;
-    for (int t = P - 1; t >= 0; --t) {
-      float d = dacs[t] - gk[t];
-      if (t == P - 1) d += part[kBwdWarps] * hsum + gsum;
-      run += d;
-      da[(t0 + t) * nh + h] = run;
+  // 5. da: d acs per step from the partial sums (in a fixed order), the
+  // last step's own terms, summed from the end of the piece by shuffles
+  if (warp == 0) {
+    float dv[2], gk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = 32 * r + lane;
+      dv[r] = gk[r] = 0.f;
+      if (t < P) {
+        float row = 0.f, col = 0.f, f = 0.f, gg = 0.f;
+        for (int q = 0; q <= t / 16; ++q) row += rowp[q * QP + t];
+        for (int q = t / 16; q < T; ++q) col += colp[q * QP + t];
+        for (int q = 0; q < NS; ++q) {
+          f += fp[q * QP + t];
+          gg += gp[q * QP + t];
+        }
+        gk[r] = dte[t] * gg;
+        dv[r] = row - col + e[t] * f - gk[r];
+      }
+    }
+    float hs = 0.f;
+    for (int q = 0; q < NS; ++q) hs += hp[q];
+    const float last = *eT * hs + warp_sum(gk[0] + gk[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (32 * r + lane == P - 1) dv[r] += last;
+    float carry = 0.f;
+#pragma unroll
+    for (int r = 1; r >= 0; --r) {
+      float v = dv[r];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float w = __shfl_down_sync(0xffffffffu, v, off);
+        if (lane + off < 32) v += w;
+      }
+      v += carry;
+      carry = __shfl_sync(0xffffffffu, v, 0);
+      const int t = 32 * r + lane;
+      if (t < P) da[(t0 + t) * nh + h] = v;
     }
   }
 }
@@ -1018,51 +1497,72 @@ int ssd_scan_f32(const void* x, const void* a_log, const void* Bm,
 }
 
 // The backward of ssd_scan_f32 (see the header): s is a multiple of the
-// piece P <= 64, zero-padded as the forward pads; h0 and dh are scratch
-// of b * nh * (s / P) * hd * S floats each; dB and dC take each head's
-// partial [b, s, nh, S], for the caller to sum over a group's heads.
+// piece P <= 64, zero-padded as the forward pads; cb is scratch of
+// b * (s / P) * G * QP * QP floats for C.B^T (QP the piece rounded up to
+// 16), h0 and dh scratch of b * (s / P) * nh * hd * S floats each (the
+// heads of a piece side by side); dB and dC take each head's partial
+// [b, s, nh, S], for the caller to sum over a group's heads.
 int ssd_scan_bwd_f32(const void* x, const void* a_log, const void* Bm,
                      const void* Cm, const void* dy, const void* dstate,
-                     void* h0, void* dh, void* dx, void* da, void* dB,
-                     void* dC, int b, int s, int nh, int hd, int G, int S,
-                     int P, int device, void* stream) {
+                     void* cb, void* h0, void* dh, void* dx, void* da,
+                     void* dB, void* dC, int b, int s, int nh, int hd, int G,
+                     int S, int P, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b <= 0 || s <= 0 || nh <= 0) return 0;
   if (P <= 0 || P > kMaxChunk || s % P != 0 || hd <= 0 || hd > kMaxDim ||
       S <= 0 || S > kMaxDim || G <= 0 || nh % G != 0 || b > 65535 ||
-      nh > 65535)
+      nh > 65535 || G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * bwd_smem_floats(P, hd, S);
+  const int QP = (P + 15) / 16 * 16;
+  const int SP = (S + 7) / 8 * 8;
+  const int ks = sweep_ks(hd);
+  const int cs = sweep_cs(S);
+  const size_t cb_smem = sizeof(float) * 2 * QP * (SP + 4);
+  const size_t sweep_smem = sizeof(float) * bwd_sweep_floats(P, hd, S);
+  const size_t piece_smem = sizeof(float) * bwd_piece_floats(P, hd, S);
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(optin))
+  if (sweep_smem > static_cast<size_t>(optin) ||
+      piece_smem > static_cast<size_t>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xf = static_cast<const float*>(x);
   const float* af = static_cast<const float*>(a_log);
   const float* bf = static_cast<const float*>(Bm);
   const float* cf = static_cast<const float*>(Cm);
   const float* dyf = static_cast<const float*>(dy);
+  float* cbf = static_cast<float*>(cb);
   float* h0f = static_cast<float*>(h0);
   float* dhf = static_cast<float*>(dh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  ssd_bwd_sweep_kernel<<<dim3((hd + kSweepRows - 1) / kSweepRows, nh, b),
-                         kBwdThreads, 0, st>>>(
-      xf, af, bf, cf, dyf, static_cast<const float*>(dstate), h0f, dhf, s,
-      nh, hd, G, S, P);
+  // C.B^T of every piece and group, as the forward forms it
+  err = cudaFuncSetAttribute(ssd_cb_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(cb_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_cb_kernel<<<dim3(s / P, G, b), kCbThreads, cb_smem, st>>>(bf, cf, cbf,
+                                                                s, G, S, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ssd_bwd_piece_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  ssd_bwd_piece_kernel<<<dim3(s / P, nh, b), kBwdThreads, smem, st>>>(
-      xf, af, bf, cf, dyf, h0f, dhf, static_cast<float*>(dx),
+  err = cudaFuncSetAttribute(ssd_bwd_sweep_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sweep_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_sweep_kernel<<<dim3(nh * ks * cs * 2, b), kBwdThreads, sweep_smem,
+                         st>>>(xf, af, bf, cf, dyf,
+                               static_cast<const float*>(dstate), h0f, dhf, s,
+                               nh, hd, G, S, P, ks, cs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(ssd_bwd_piece_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(piece_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_piece_kernel<<<dim3(nh, s / P, b), kBwdThreads, piece_smem, st>>>(
+      xf, af, bf, cf, dyf, cbf, h0f, dhf, static_cast<float*>(dx),
       static_cast<float*>(da), static_cast<float*>(dB),
       static_cast<float*>(dC), s, nh, hd, G, S, P);
   return static_cast<int>(cudaGetLastError());

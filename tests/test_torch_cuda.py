@@ -372,6 +372,7 @@ SCAN_SHAPES = [
     (1, 256, 8, 64, 2, 128, 64),      # G = 2, nh = 8: two-block clusters
     (1, 300, 8, 64, 2, 128, 128),     # chunk 128: two pieces of 64
     (1, 72, 3, 24, 3, 16, 64),        # hd not a multiple of 16: one slice
+    (1, 256, 4, 128, 1, 128, 64),     # 128-wide heads, state 128
 ]
 
 

@@ -9,7 +9,13 @@ package on the CPU before any card runs them.
   tensor cores and runs chunks in pieces of at most 64 steps: the
   emulation of that arithmetic (``ref.ssd_scan_3xtf32_ref``) stays within
   the card's tolerance of the plain version and of the JAX op.
+- ``ssd_scan``'s backward kernel forms its products in 3xTF32 too: the
+  emulation (``ref.ssd_scan_bwd_3xtf32_ref``) stays within the card's
+  tolerance of the plain backward and of ``jax.vjp`` of the JAX oracle,
+  and its blocks fit the card's shared memory at every shape the forward
+  accepts.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.paged_attention.ops import (  # noqa: E402
     paged_attention as jax_paged_attention)
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan  # noqa: E402
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
@@ -26,7 +33,8 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref, paged_attention_split_ref, split_range)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    mm_3xtf32, ssd_scan_3xtf32_ref, ssd_scan_ref, tf32_truncate)
+    mm_3xtf32, ssd_scan_3xtf32_ref, ssd_scan_bwd_3xtf32_ref,
+    ssd_scan_bwd_ref, ssd_scan_ref, tf32_truncate)
 
 # ---------------------------------------------------------------------------
 # paged_attention: the split plan and the split-and-merge arithmetic
@@ -209,3 +217,46 @@ def test_scan_plan_fits_every_allowed_shape():
             for S in (4, 64, 128):
                 assert ssd_ops.smem_bytes(Q, hd, S) <= ssd_ops.MAX_SMEM
     assert 2 * (ssd_ops.smem_bytes(64, 64, 128) + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("b,s,nh,hd,G,S,chunk",
+                         SCAN_CASES + [(1, 256, 4, 128, 1, 128, 64)])
+def test_3xtf32_scan_bwd_matches_plain_and_jax(b, s, nh, hd, G, S, chunk):
+    """The backward kernel's arithmetic (every product in 3xTF32, C.B^T
+    once per group) against ``ssd_scan_bwd_ref`` and ``jax.vjp`` of the
+    JAX oracle, from a seeded dy and non-zero dstate: each gradient within
+    2e-4 of its largest magnitude, the card's gate (da_log, a sum of
+    E's row and column sums that cancel, included); the reduced mamba2
+    cases, two groups, and 128-wide heads with state 128."""
+    args = _scan_inputs(b, s, nh, hd, G, S, s + hd)
+    rng = np.random.default_rng(s + hd + 1)
+    dy = rng.standard_normal((b, s, nh, hd)).astype(np.float32)
+    ds = rng.standard_normal((b, nh, hd, S)).astype(np.float32)
+    targs = [torch.from_numpy(a) for a in (*args, dy, ds)]
+    got = ssd_scan_bwd_3xtf32_ref(*targs, chunk=chunk)
+    want = ssd_scan_bwd_ref(*targs, chunk=chunk)
+    _, vjp = jax.vjp(lambda *t: jax_ssd_chunked(*t, chunk=chunk),
+                     *map(jnp.asarray, args))
+    jax_want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    for g, w, wj in zip(got, want, jax_want):
+        assert g.shape == w.shape == wj.shape
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 2e-4 * scale
+        assert np.abs(g.numpy() - np.asarray(wj)).max() <= 2e-4 * scale
+
+
+def test_bwd_plan_fits_every_allowed_shape():
+    """The backward's blocks fit one block's shared memory at every shape
+    the forward accepts (so the op never refuses a gradient the forward
+    took), and at the training path's shape two of the larger block fit
+    on one SM; a sweep block holds at most 64 x 64 of a head's state."""
+    assert ssd_ops.bwd_plan(64, 64, 128) == (64, 1, 2)
+    assert ssd_ops.bwd_plan(128, 128, 128) == (64, 2, 2)
+    assert ssd_ops.bwd_plan(40, 65, 64) == (40, 2, 1)
+    for Q in (1, 16, 33, 40, 64, 65, 100, 127, 128):
+        for hd in (1, 8, 16, 24, 63, 64, 65, 120, 127, 128):
+            for S in (1, 4, 63, 64, 127, 128):
+                if ssd_ops.smem_bytes(Q, hd, S) <= ssd_ops.MAX_SMEM:
+                    assert ssd_ops.bwd_smem_bytes(Q, hd, S) \
+                        <= ssd_ops.MAX_SMEM
+    assert 2 * (ssd_ops.bwd_smem_bytes(64, 64, 128) + 1024) <= 233_472

@@ -9,7 +9,10 @@ checkout, builds its ``paged_attention``, ``ssd_scan``, ``kv_restore``
 and ``token_delta`` sources and times one op call (device time of a
 CUDA-graph replay, as ``chip_smoke.py`` times it) at the shapes of
 ``chip_smoke.py``: ``paged_attention`` at lwm-7b's and yi-34b's heads
-over three 543-token contexts, ``ssd_scan`` at mamba2-2.7b's prefill,
+over three 543-token contexts, ``ssd_scan`` at mamba2-2.7b's prefill
+and, in a checkout that has ``ssd_scan_bwd``, its backward at the
+training shape (b 1, s 2048, dy and dstate from the generator), also
+split by CUDA kernel in the turn's one profiler session,
 ``kv_restore`` on one layer of one 8-token frame of lwm-7b and, in a
 checkout that has ``kv_restore_layers``, on one 3-layer 16-token chunk;
 the token-delta decode of a 40 x 128 x 416 stack (group 0's 240p plane)
@@ -59,6 +62,26 @@ def turn(root: str) -> dict:
             out.append(start.elapsed_time(end) * 1e3 / iters)
         return statistics.median(out)
 
+    def kernel_us(fn, iters=5):
+        """Device µs per call of each CUDA kernel that fn launches, from
+        the process's one profiler session."""
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = e.device_time_total
+            if t > 0 and e.key != "cudaLaunchKernel":
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("<")[0]
+                name = name.split("(")[0].split("::")[-1]
+                out[name] = out.get(name, 0.0) + t / iters
+        return out
+
     g = torch.Generator(device=dev).manual_seed(0)
     res = {"root": root}
     lens, ps = [543, 543, 543], 16
@@ -81,6 +104,14 @@ def turn(root: str) -> dict:
             torch.randn(b, s, G, S, device=dev, generator=g))
     res["ssd_scan mamba2-2.7b us"] = graph_us(
         lambda: ssd_ops.ssd_scan(*args, chunk=64), iters=10)
+    if hasattr(ssd_ops, "ssd_scan_bwd"):
+        dy = torch.randn(b, s, nh, hd, device=dev, generator=g)
+        dstate = torch.randn(b, nh, hd, S, device=dev, generator=g)
+        res["ssd_scan_bwd mamba2-2.7b us"] = graph_us(
+            lambda: ssd_ops.ssd_scan_bwd(*args, dy, dstate, chunk=64),
+            iters=10)
+        res["ssd_scan_bwd kernels us"] = kernel_us(
+            lambda: ssd_ops.ssd_scan_bwd(*args, dy, dstate, chunk=64))
     H, D, R = 32, 128, 2048
     pages = torch.randn(32, R, H, D, device=dev, generator=g)
     q = torch.randint(0, 256, (3, 16, H, D), device=dev, generator=g,
