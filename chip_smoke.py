@@ -24,7 +24,8 @@ JAX or of the JAX package.  Phases:
    remainder group and with a real token in row 0 beside dropped tokens,
    and the single-layer ``kv_restore`` timed at one 8-token frame;
    ``paged_attention`` within 1e-4 at phase 4's batch of three, at phase
-   5b's one request alone, at each decode step shape of phase 5c's fleet
+   5b's one request alone, at phase 5d's two requests together, at each
+   decode step shape of phase 5c's fleet
    (``FLEET_BATCHES``) and at yi-34b's GQA head shape, each in block
    tables as wide as the cache's, with the number of page-axis splits
    and phase 1's kernels per call); times beside the bound (each
@@ -93,6 +94,22 @@ JAX or of the JAX package.  Phases:
    ``FleetSimulator`` run on the same script.  Per request the node,
    hit kind, modeled and wall TTFT; per node the dispatches and
    launches; the peak memory and the phase's wall time are logged;
+5d. mesh sharding: phase 5's link, decode table, weights and store
+   behind a ``LiveEngine`` laid out on a (1, 1) ``DeviceMesh`` over
+   ("data", "model") (``launch.mesh.make_debug_mesh``: a one-process
+   group, nccl for the card) with ``mesh_shards=3``, so each fetch of 704
+   chunks over 11 layer groups runs as three per-shard flows (4/4/3
+   groups) through the one controller; one reuse and one plain request,
+   ``sync`` then ``async``.  Per mode the counts are set to 0 before and
+   read after: ``kv_restore`` must equal one fetch's chunks,
+   ``paged_attention`` the layers times the decode steps; the fetch must
+   split into three non-empty subplans; the restored pages must equal the
+   codec's frames; the pages' DTensor views must be placed
+   ``(Replicate(), Shard(3))`` and share the pages' storage; the tokens
+   must equal phase 5's for the mode and phase 4's; no sharded fetch may
+   stay tracked.  Each mode's modeled TTFTs beside phase 5's, the phase's
+   wall time and peak memory are logged; the process group is destroyed
+   at the end;
 6. reference: the same engine at a reduced size on the card and on the
    CPU (plain versions) must generate the same tokens; so must the
    storage script of phase 5b, with equal cluster and prefetcher event
@@ -207,6 +224,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed  # noqa: E402
+from torch.distributed.tensor import Replicate, Shard  # noqa: E402
 
 from repro_torch.cluster.costmodel import CHIPS, EngineCostModel  # noqa: E402
 from repro_torch.cluster.fairness import FairScheduler  # noqa: E402
@@ -245,11 +264,13 @@ from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_decode_frame_ref, token_delta_decode_frames_ref,
     token_delta_encode_ref)
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.roofline.analysis import model_flops  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
 from repro_torch.training.optimizer import (  # noqa: E402
@@ -303,6 +324,11 @@ DECODE_CTX = [PREFIX_TOKENS + SUFFIX_TOKENS + NEW_TOKENS - 1] * 3
 DECODE_WIDTH = table_width(PREFIX_TOKENS + SUFFIX_TOKENS, NEW_TOKENS)
 # the storage phase's decode context at its last step: one request alone
 STORAGE_CTX = DECODE_CTX[:1]
+# the sharded phase: per-shard flows a fetch runs as (lwm-7b's 11 layer
+# groups split 4/4/3), and its decode contexts at the last step of a batch
+# of two (sync mode: the reuse and the plain request together)
+MESH_SHARDS = 3
+SHARDED_CTX = DECODE_CTX[:2]
 # the fleet phase: serving nodes, new tokens per request, and the kinds of
 # cluster event whose order the dispatch sequence alone sets (a missed
 # prefix's re-admission rides on its prefill's first token, a clock)
@@ -343,6 +369,7 @@ DS_PARAMS = 16_375_728_128
 # batch of three is held in phase 12
 ATTN_CASES = ((("lwm-7b", "lwm-7b", DECODE_CTX, DECODE_WIDTH, 2),
                ("lwm-7b B=1", "lwm-7b", STORAGE_CTX, DECODE_WIDTH, 4),
+               ("lwm-7b B=2", "lwm-7b", SHARDED_CTX, DECODE_WIDTH, 21),
                ("yi-34b", "yi-34b", DECODE_CTX, DECODE_WIDTH, 3),
                (DS_ARCH, DS_ARCH, DECODE_CTX, DECODE_WIDTH, 20))
               + tuple((f"lwm-7b fleet ctx {list(lens)} w {width}", "lwm-7b",
@@ -1129,7 +1156,7 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
         f"{len(man.refs)} blobs); compute on the cost model's h20 "
         f"(modeled times, not the card's)")
     want_kv = expected_restores(cfg, man)
-    ttft = {}
+    ttft, outputs = {}, {}
     for mode in ("sync", "async"):
         eng = LiveEngine(params, cfg, store, n_pages=N_PAGES, device=dev,
                          fetch_mode=mode, bandwidth=trace,
@@ -1182,6 +1209,7 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
             f"check {t_check:.2f} s not counted); "
             f"fetched {eng.stats.fetched_bytes} bytes")
         ttft[mode] = (reuse.ttft, other.ttft)
+        outputs[mode] = (eng.outputs[reuse.rid], eng.outputs[other.rid])
         del eng
         torch.cuda.empty_cache()
     check(ttft["async"][0] < ttft["sync"][0],
@@ -1191,6 +1219,145 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
     log(f"[virtual] async/sync modeled reuse TTFT "
         f"{ttft['async'][0] / ttft['sync'][0]:.4f}; tokens equal across "
         f"modes and to phase 4's")
+    return ttft, outputs
+
+
+# -- phase 5d: a mesh-sharded engine ------------------------------------------
+
+def sharded_path(dev, cfg, params, store, man, prefix, prompts, plain,
+                 wall_outputs, virtual, frames):
+    """Phase 5's requests through a ``LiveEngine`` laid out on a (1, 1)
+    ``DeviceMesh`` with ``mesh_shards=MESH_SHARDS``: each fetch runs as
+    per-shard flows through the one controller.  Returns the launches of
+    both modes and the ``paged_attention`` launches by decode batch
+    size."""
+    key = prefix_key(prefix)
+    trace, table, _, _ = virtual_net(man)
+    want_kv = expected_restores(cfg, man)
+    n_groups = len(man.layer_groups)
+    want_subs = min(MESH_SHARDS, n_groups)
+    # an engine and its controller's hooks form a cycle: collect the
+    # earlier phases' engines before the peak is taken
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    mesh = make_debug_mesh((1, 1), device=dev)
+    log(f"[sharded] mesh {mesh}; backend "
+        f"{torch.distributed.get_backend()}; mesh_shards {MESH_SHARDS} over "
+        f"{n_groups} layer groups; {want_kv} chunks a fetch")
+    launches = {"kv_restore": 0, "paged_attention": 0}
+    by_batch: dict = {}
+    split = engine_mod.split_plan_shards
+    decode_paged = paged_model.decode_paged
+    try:
+        for mode in ("sync", "async"):
+            splits, batches = [], []
+
+            def split_recorded(plan, n):
+                splits.append(split(plan, n))
+                return splits[-1]
+
+            def decode_recorded(p, c, tokens, positions, cache, seq_ids):
+                batches.append(len(seq_ids))
+                return decode_paged(p, c, tokens, positions, cache, seq_ids)
+
+            eng = LiveEngine(params, cfg, store, n_pages=N_PAGES, device=dev,
+                             fetch_mode=mode, bandwidth=trace,
+                             decode_table=table, mesh=mesh,
+                             mesh_shards=MESH_SHARDS)
+            check(eng.n_shards == MESH_SHARDS,
+                  f"{mode}: {eng.n_shards} shards, not {MESH_SHARDS}")
+            views = (eng.cache.k_dtensor, eng.cache.v_dtensor)
+            for view, pages in zip(views, (eng.cache.k_pages,
+                                           eng.cache.v_pages)):
+                check(view.placements == (Replicate(), Shard(3)),
+                      f"{mode}: pages placed {view.placements}")
+                check(view.to_local().data_ptr() == pages.data_ptr()
+                      and view.to_local().stride() == pages.stride(),
+                      f"{mode}: the DTensor view does not share the pages")
+            reuse = eng.submit(prompts[0], reuse_prefix=key,
+                               reuse_tokens=PREFIX_TOKENS,
+                               max_new_tokens=NEW_TOKENS)
+            other = eng.submit(plain, max_new_tokens=NEW_TOKENS)
+            torch.cuda.synchronize()
+            kv_ops.launches = 0
+            pa_ops.launches = 0
+            t0 = time.perf_counter()
+            checked, steps, t_check = False, 0, 0.0
+            with mock.patch.object(engine_mod, "split_plan_shards",
+                                   split_recorded), \
+                    mock.patch.object(paged_model, "decode_paged",
+                                      decode_recorded):
+                while eng.step():
+                    steps += 1
+                    check(steps < 100_000,
+                          f"{mode}: the engine does not finish")
+                    if not checked and reuse.t_first_token is not None:
+                        t1 = time.perf_counter()
+                        n_kv, n_pa = kv_ops.launches, pa_ops.launches
+                        check_restored_pages(eng, cfg, man, reuse.rid, frames)
+                        check((n_kv, n_pa) == (kv_ops.launches,
+                                               pa_ops.launches),
+                              "page check launched a kernel")
+                        checked = True
+                        t_check = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0 - t_check
+            got = {"kv_restore": kv_ops.launches,
+                   "paged_attention": pa_ops.launches}
+            reqs = (reuse, other)
+            decode_steps = len(batches)
+            want = {"kv_restore": want_kv,
+                    "paged_attention": cfg.num_layers * decode_steps}
+            sizes = [len(sp.chunks) for subs in splits for sp in subs]
+            log(f"[sharded] {mode}: launches {got}, expected {want} "
+                f"({decode_steps} decode steps, batch sizes "
+                f"{dict(sorted((b, batches.count(b)) for b in set(batches)))}"
+                f"); subplans of {sizes} chunks")
+            check(checked, f"{mode}: the restored pages were not checked")
+            check(got == want, f"{mode}: launch counts differ")
+            check(len(splits) == 1 and len(sizes) == want_subs
+                  and all(sizes) and sum(sizes) == len(man.refs),
+                  f"{mode}: subplans of {sizes} chunks, not {want_subs} "
+                  f"non-empty ones over {len(man.refs)}")
+            check(not eng._sharded, f"{mode}: a sharded fetch is still "
+                  f"tracked")
+            check(len(eng.finished) == 2, f"{mode}: not every request "
+                  f"finished")
+            for r, prompt_rid, ref in ((reuse, 0, virtual[1][mode][0]),
+                                       (other, 2, virtual[1][mode][1])):
+                out = eng.outputs[r.rid]
+                check(out == ref == wall_outputs[prompt_rid],
+                      f"{mode} rid {r.rid}: tokens {out} differ from phase "
+                      f"5's {ref} or phase 4's {wall_outputs[prompt_rid]}")
+            base = virtual[0][mode]
+            log(f"[sharded] {mode}: modeled TTFT reuse {reuse.ttft:.4f} s "
+                f"(phase 5, unsharded: {base[0]:.4f} s), plain "
+                f"{other.ttft:.4f} s ({base[1]:.4f} s); modeled "
+                f"fetch+decode+restore "
+                f"{reuse.fetch_done - reuse.fetch_started:.4f} s; "
+                f"prefill_stall_time {eng.stats.prefill_stall_time:.4f} s; "
+                f"wall {wall:.2f} s over {steps + 1} steps (page check "
+                f"{t_check:.2f} s not counted); tokens equal to phase 5's "
+                f"and phase 4's")
+            for name, n in got.items():
+                launches[name] += n
+            for b in batches:
+                by_batch[b] = by_batch.get(b, 0) + cfg.num_layers
+            del eng, views
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[sharded] phase wall {time.perf_counter() - t_phase:.2f} s (page "
+        f"checks included); peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB; {held / 2**30:.2f} GiB held when the "
+        f"phase started)")
+    return launches, by_batch
 
 
 # -- phase 5b: the storage tier, host staging and prefetch ------------------
@@ -2386,8 +2553,13 @@ def main() -> int:
     launches, wall_outputs = main_path(dev, cfg, params, store, man, prefix,
                                        prompts, plain, frames)
     launches.update(td_launches)
-    virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
-                 wall_outputs, frames)
+    virtual = virtual_path(dev, cfg, params, store, man, prefix, prompts,
+                           plain, wall_outputs, frames)
+    sharded, sharded_batches = sharded_path(
+        dev, cfg, params, store, man, prefix, prompts, plain, wall_outputs,
+        virtual, frames)
+    check(set(sharded_batches) <= {1, 2},
+          f"phase 5d decoded batches of {sorted(sharded_batches)}")
     stored, anc = storage_path(dev, cfg, params, man, prefix, prompts,
                                kv_k, kv_v, wall_outputs, frames)
     fleet, fleet_shapes = fleet_path(
@@ -2395,18 +2567,21 @@ def main() -> int:
         prompts, plain, wall_outputs, frames)
     del anc
     # paged_attention runs at many shapes: the batch of three in phase 4,
-    # one request alone in phase 5b, the fleet's decode steps in phase 5c
-    # and deepseek-moe-16b's batch of three in phase 13.  Each is held,
-    # timed and counted on its own; the row's times are their means
-    # weighted by launches
+    # one request alone in phases 5b and 5d, two in 5d, the fleet's decode
+    # steps in phase 5c and deepseek-moe-16b's batch of three in phase 13.
+    # Each is held, timed and counted on its own (5b's and 5d's at their
+    # last step's contexts); the row's times are their means weighted by
+    # launches
     per_shape = {"lwm-7b": launches["paged_attention"],
-                 "lwm-7b B=1": stored["paged_attention"]}
+                 "lwm-7b B=1": stored["paged_attention"]
+                 + sharded_batches.get(1, 0),
+                 "lwm-7b B=2": sharded_batches.get(2, 0)}
     for case, _, lens, width, _ in ATTN_CASES:
         if (tuple(lens), width) in fleet_shapes and case.startswith(
                 "lwm-7b"):
             per_shape[case] = fleet_shapes[tuple(lens), width]
     for name, n in stored.items():
-        launches[name] += n + fleet[name]
+        launches[name] += n + fleet[name] + sharded[name]
     # kv_restore likewise, by the chunk shapes of lwm-7b's groups
     kv_shapes = {("lwm-7b", G): launches["kv_restore"] * share
                  for G, share in restores_by_group(man).items()}

@@ -83,6 +83,38 @@ def build_plan(rid: int, manifest: KVManifest) -> FetchPlan:
                      n_layers_total=n_layers)
 
 
+def split_plan_shards(plan: FetchPlan, n_shards: int) -> List[FetchPlan]:
+    """Partition ``plan`` into per-shard subplans by layer group
+    (``ref.group % n_shards``) for a mesh-sharded paged cache: each
+    shard's fetch/decode/restore stream runs as its own flow through the
+    one FetchController event loop.  The `PlannedChunk` objects are
+    SHARED with the parent plan (not copied), so restore timestamps
+    recorded by a shard are visible to `sharded_layers_ready` and to the
+    parent plan's own ``layers_ready``/``done``.  Empty shards (more
+    shards than layer groups) are dropped."""
+    assert n_shards >= 1
+    subs: List[FetchPlan] = []
+    for s in range(n_shards):
+        chunks = [pc for pc in plan.chunks if pc.ref.group % n_shards == s]
+        if chunks:
+            subs.append(FetchPlan(rid=plan.rid, manifest=plan.manifest,
+                                  chunks=chunks,
+                                  n_layers_total=plan.n_layers_total))
+    return subs
+
+
+def sharded_layers_ready(plans: List[FetchPlan]) -> int:
+    """Contiguous ready-layer prefix across shard subplans: the union of
+    their chunks is exactly the parent plan's chunk set, so this is the
+    aggregate the engine gates admission on while shards restore
+    independently."""
+    merged = FetchPlan(
+        rid=plans[0].rid if plans else -1, manifest=None,
+        chunks=[pc for sp in plans for pc in sp.chunks],
+        n_layers_total=plans[0].n_layers_total if plans else 0)
+    return merged.layers_ready()
+
+
 def synthetic_plan(rid: int, reuse_tokens: int, n_attn_layers: int,
                    tokens_per_chunk: int) -> FetchPlan:
     """Plan without a real manifest: chunk geometry only (byte sizes come

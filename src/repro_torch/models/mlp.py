@@ -7,6 +7,12 @@ import torch.nn.functional as F
 from repro_torch.models.common import squared_relu
 
 
+def mlp_param_axes(kind: str) -> dict:
+    if kind == "swiglu":
+        return {"wi": ("embed", None, "mlp"), "wo": ("mlp", "embed")}
+    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
 def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     """x [b, s, d]; swiglu ``wi`` is [d, 2, ff], the others [d, ff]."""
     if kind == "swiglu":

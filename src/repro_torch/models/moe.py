@@ -27,7 +27,20 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import squared_relu
-from repro_torch.models.mlp import apply_mlp
+from repro_torch.models.mlp import apply_mlp, mlp_param_axes
+
+
+def moe_param_axes(cfg: ModelConfig) -> dict:
+    swiglu = cfg.mlp_kind == "swiglu"
+    axes = {
+        "router": ("embed", "experts"),
+        "wi": (("experts", "embed", None, "mlp") if swiglu
+               else ("experts", "embed", "mlp")),
+        "wo": ("experts", "mlp", "embed"),
+    }
+    if cfg.num_shared_experts:
+        axes["shared"] = mlp_param_axes(cfg.mlp_kind)
+    return axes
 
 
 def route(p: dict, x: torch.Tensor, cfg: ModelConfig

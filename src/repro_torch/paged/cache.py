@@ -16,6 +16,11 @@ On the card a chunk's decoded tokens and page rows travel through a small
 ring of pinned host buffers (``StagingRing``) with asynchronous copies, so
 the host never waits for the card to restore a chunk; it waits only before
 it writes a buffer whose last launch has not run yet.
+
+``shard`` lays the pages out over a device mesh: ``k_dtensor`` and
+``v_dtensor`` are then ``DTensor`` views of the page tensors (the same
+storage), while every write, the kernels and the paged model keep using
+the plain tensors ``k_pages``/``v_pages``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -110,6 +116,25 @@ class PagedKVCache:
         self.seqs: Dict[int, SeqInfo] = {}
         self.staging = (StagingRing(self.device)
                         if self.device.type == "cuda" else None)
+        self.k_dtensor: Optional[DTensor] = None
+        self.v_dtensor: Optional[DTensor] = None
+
+    def shard(self, mesh, placements) -> None:
+        """Expose the pages as ``DTensor``s on ``mesh`` with
+        ``placements``, built from the local tensors without a collective
+        and sharing their storage.  This rank holds every page, so a dim
+        may only be sharded over mesh dims of size 1."""
+        split = [mesh.shape[d] for d, p in enumerate(placements)
+                 if p.is_shard() and mesh.shape[d] > 1]
+        if split:
+            raise ValueError(
+                f"placements {tuple(placements)} split the pages over mesh "
+                f"dims of sizes {split}; this cache holds every page on "
+                f"one rank")
+        self.k_dtensor = DTensor.from_local(self.k_pages, mesh, placements,
+                                            run_check=False)
+        self.v_dtensor = DTensor.from_local(self.v_pages, mesh, placements,
+                                            run_check=False)
 
     # -- sequence lifecycle ------------------------------------------------
     def add_seq(self, seq_id: int, n_tokens: int) -> SeqInfo:

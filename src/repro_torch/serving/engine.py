@@ -45,11 +45,16 @@ fetches itself, and the fleet calls ``dispatch_fetch`` for a fetch over
 the storage tier or ``local_restore`` for a prefix the serving node
 already holds.
 
+``mesh=`` (a ``DeviceMesh``, `repro_torch.launch.mesh`) lays the paged
+cache out over the mesh by the logical-axis rules (kv heads on the
+"model" axis), and ``mesh_shards=`` (default: the mesh's "model" size)
+splits each virtual-clock fetch plan by layer group into per-shard
+subplans, each its own flow through the one controller under a shadow
+request id; the real request completes once, when its last shard lands.
+
 The constructor takes every knob of the JAX engine so the two stay
-interchangeable; the knobs of mesh sharding (``mesh``, ``mesh_shards``)
-raise ``NotImplementedError`` naming the slice of the port that brings
-them, rather than being ignored.  Where the JAX engine asserts, this one
-raises ``ValueError`` with the same message.
+interchangeable.  Where the JAX engine asserts, this one raises
+``ValueError`` with the same message.
 """
 from __future__ import annotations
 
@@ -68,11 +73,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adaptive import DecodeTable
 from repro_torch.core.chunks import KVManifest
 from repro_torch.core.codec import KVCodec
-from repro_torch.core.fetch import FetchPlan, PlannedChunk, build_plan
+from repro_torch.core.fetch import (FetchPlan, PlannedChunk, build_plan,
+                                    sharded_layers_ready, split_plan_shards)
 from repro_torch.core.fetch_controller import (ActiveFetch, FetchController,
                                                FetchHooks, PipelineConfig)
 from repro_torch.core.layout import IntraLayout
-from repro_torch.core.scheduler import FetchingAwareScheduler, Request
+from repro_torch.core.scheduler import (FetchingAwareScheduler, ReqState,
+                                        Request)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import _project_qkv, attend
 from repro_torch.models.common import rms_norm
@@ -80,6 +87,11 @@ from repro_torch.models.transformer import lm_logits
 from repro_torch.paged.cache import PagedKVCache
 from repro_torch.params import layer_params
 from repro_torch.serving import paged_model
+from repro_torch.sharding import rules
+
+# Shadow rids for mesh-sharded fetches live far above any real rid so
+# the per-shard controller flows can never collide with request flows.
+_SHADOW_RID_BASE = 10_000_000
 
 
 @dataclasses.dataclass
@@ -89,12 +101,6 @@ class EngineStats:
     fetched_bytes: int = 0
     steps: int = 0
     prefill_stall_time: float = 0.0  # virtual time spent waiting for KV
-
-
-def _later(knob: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"LiveEngine({knob}=...) is not ported yet: it arrives with "
-        f"{slice_name} of the port")
 
 
 class _EngineHooks(FetchHooks):
@@ -151,13 +157,6 @@ class LiveEngine:
                                              None]] = None,
                  mesh=None, mesh_shards: Optional[int] = None,
                  device: DeviceLike = None):
-        later = {
-            "mesh": (mesh is not None, "the sharding slice"),
-            "mesh_shards": (mesh_shards is not None, "the sharding slice"),
-        }
-        for knob, (given, slice_name) in later.items():
-            if given:
-                raise _later(knob, slice_name)
         if not isinstance(store, (KVStore, StorageCluster)):
             raise TypeError(
                 f"LiveEngine store {type(store).__module__}."
@@ -199,6 +198,21 @@ class LiveEngine:
         self.prefetch = prefetch
         self.cache = PagedKVCache(cfg, n_pages, page_size,
                                   device=self.device)
+        # mesh sharding: the pages lay out over the mesh's "model" axis
+        # (kv heads); fetch plans split into per-shard subplans so each
+        # shard restores its slice as its own flow
+        self.n_shards = 1
+        if mesh is not None or mesh_shards is not None:
+            self.n_shards = int(mesh_shards) if mesh_shards is not None \
+                else rules.mesh_sizes(mesh).get("model", 1)
+            if self.n_shards < 1:
+                raise ValueError(f"mesh_shards {self.n_shards}: at least 1")
+            if mesh is not None:
+                self._shard_cache(mesh)
+        #: rid -> (req, shard subplans) for fetches in sharded flight
+        self._sharded: Dict[int, Tuple[Request, List[FetchPlan]]] = {}
+        #: shadow rid -> real request (restore callbacks remap through it)
+        self._shadow_real: Dict[int, Request] = {}
         self.fairness = fairness
         self.sched = FetchingAwareScheduler(policy, max_running=max_running,
                                             fairness=fairness)
@@ -263,6 +277,17 @@ class LiveEngine:
         # mode, where this branch never runs
         return self._clock if self.virtual \
             else time.monotonic()  # repro-lint: allow(no-wall-clock)
+
+    # -- mesh-sharded paged cache --------------------------------------------
+    def _shard_cache(self, mesh) -> None:
+        """Lay the paged KV out over ``mesh``: kv heads shard on the
+        "model" axis (DEFAULT_RULES), everything else replicates.
+        Non-divisible dims fall back to replication."""
+        with rules.activate(mesh):
+            placements = rules.placements(
+                ("layers", None, None, "kv_heads", None),
+                self.cache.k_pages.shape, mesh=mesh)
+        self.cache.shard(mesh, placements)
 
     # -- storage-node churn ---------------------------------------------------
     def fail_node(self, node_id: str) -> None:
@@ -390,12 +415,71 @@ class LiveEngine:
         if self.ctrl is None:
             self._run_fetch_wall(req, plan)
             return
+        if self.n_shards > 1:
+            self._start_sharded(req, plan, link=link, resolutions=res_avail,
+                                served_key=served_key)
+            return
         self.ctrl.start(req, plan, self.now(), link=link,
                         resolutions=res_avail, served_key=served_key)
         if self.fetch_mode == "sync":
             # blocking baseline: the engine idles until the (serialized)
             # pipeline finishes; the virtual clock absorbs the whole fetch
             self._clock = max(self._clock, self.ctrl.drain(plan))
+
+    # -- mesh-sharded fetch: per-shard plans as independent flows -------------
+    def _start_sharded(self, req: Request, plan: FetchPlan, *,
+                       link=None, resolutions=None,
+                       served_key=None) -> None:
+        """Split the plan by layer-group shard and run every shard's
+        fetch/decode/restore stream as its own flow through the ONE
+        controller event loop: shards contend on the link like per-device
+        DMA streams would, and the request is admitted when
+        `sharded_layers_ready` over the subplans says its contiguous
+        layer prefix landed.  Each shard fetches under a *shadow* of the
+        request (fresh rid, state=WAITING) so the controller's per-shard
+        completion bookkeeping (fairness charge, scheduler notify, early
+        admission) all no-op; the REAL request completes exactly once, in
+        `_check_sharded`, when the last shard drains."""
+        subplans = split_plan_shards(plan, self.n_shards)
+        self._sharded[req.rid] = (req, subplans)
+        req.fetch_started = self.now()
+        for s, sp in enumerate(subplans):
+            shadow = dataclasses.replace(
+                req, rid=_SHADOW_RID_BASE + req.rid * 64 + s,
+                token_times=[])
+            # replace() copied WAITING_FOR_KV; shadows must stay inert
+            # for the scheduler (see notify_fetch_done / early admit)
+            shadow.state = ReqState.WAITING
+            self._shadow_real[shadow.rid] = req
+            sp.rid = shadow.rid
+            self.ctrl.start(shadow, sp, self.now(), link=link,
+                            resolutions=resolutions,
+                            served_key=served_key)
+        if self.fetch_mode == "sync":
+            t = self._clock
+            for sp in subplans:
+                t = max(t, self.ctrl.drain(sp))
+            self._clock = t
+            self._check_sharded()
+
+    def _check_sharded(self) -> None:
+        """Aggregate per-shard progress into each real request: update
+        its ready-layer prefix and fire the single completion (or miss)
+        when every shard lands (or any aborts)."""
+        for rid in list(self._sharded):
+            req, subplans = self._sharded[rid]
+            req.layers_ready = sharded_layers_ready(subplans)
+            if any(sp.aborted for sp in subplans):
+                del self._sharded[rid]
+                self.sched.notify_fetch_miss(req, self.now())
+            elif all(sp.done for sp in subplans):
+                del self._sharded[rid]
+                if self.fairness is not None:
+                    nbytes = float(sum(
+                        pc.sizes.get(pc.resolution or self.resolution, 0)
+                        for sp in subplans for pc in sp.chunks))
+                    self.fairness.on_fetch_done(req, nbytes)
+                self.sched.notify_fetch_done(req, self.now())
 
     def _run_fetch_wall(self, req: Request, plan: FetchPlan) -> None:
         """Fetch synchronously, stamping real timestamps (no network
@@ -417,6 +501,9 @@ class LiveEngine:
         group with one upload and one ``kv_restore_layers`` launch.  The
         pages are read only after the chunk's restore event, so this is
         observably the frame-wise restore of the JAX engine."""
+        # sharded fetches restore under shadow requests; the pages and
+        # the scales belong to the real rid
+        req = self._shadow_real.get(req.rid, req)
         man = plan.manifest
         ref = pc.ref
         res = pc.resolution or self.resolution
@@ -494,6 +581,8 @@ class LiveEngine:
             return
         while req.fetch_done is None and req.layers_ready <= layer:
             t = self.ctrl.pump_next()
+            if self._sharded:
+                self._check_sharded()
             if t is None:
                 if req.fetch_done is not None or req.layers_ready > layer:
                     break
@@ -548,6 +637,8 @@ class LiveEngine:
         """One engine iteration. Returns False when idle and done."""
         if self.ctrl is not None:
             self.ctrl.pump(self.now())
+            if self._sharded:
+                self._check_sharded()
         self.sched.schedule(self.now())
         if not self.external_dispatch:
             for req in self.sched.take_fetches():
@@ -598,6 +689,8 @@ class LiveEngine:
             if t is not None:
                 self._clock = max(self._clock, t)
                 self.ctrl.pump(self._clock)
+                if self._sharded:
+                    self._check_sharded()
                 self.sched.schedule(self._clock)
         self.stats.steps += 1
         return bool(self.sched.running or self.sched.waiting

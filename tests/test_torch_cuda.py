@@ -701,6 +701,81 @@ def test_live_fleet_on_the_card_matches_the_cpu(cuda):
     assert card_log == cpu_log
 
 
+def _sharded_engine_run(dev, params, cfg, prefix, kv, suffix, mesh,
+                        fetch_mode):
+    """A reuse and a plain request through a mesh-sharded engine
+    (``mesh_shards=3``) over a one-node cluster on the virtual clock:
+    what must agree across devices, the restored rows at the reuse
+    request's first token, and the kv_restore launches against the
+    chunks restored."""
+    from repro_torch.cluster.storage import StorageCluster, StorageNode
+    cluster = StorageCluster([StorageNode("n0")])
+    man = cluster.register_prefix(prefix, *kv, tokens_per_chunk=16,
+                                  resolutions=("240p",)).manifest
+    pages = {}
+
+    def on_token(req, tok, t):
+        if len(req.token_times) == 1 and req.reuse_tokens:
+            rows = torch.as_tensor(eng.cache.slots_for(
+                req.rid, np.arange(req.reuse_tokens)), device=eng.device)
+            for kind, a in (("k", eng.cache.k_pages),
+                            ("v", eng.cache.v_pages)):
+                pages[kind] = a.view(a.shape[0], -1, *a.shape[3:])[
+                    :, rows.long()].cpu()
+
+    eng = LiveEngine(params, cfg, cluster, device=dev, fetch_mode=fetch_mode,
+                     bandwidth=BandwidthTrace.constant(0.0006), mesh=mesh,
+                     mesh_shards=3, on_token=on_token)
+    reqs = [eng.submit(np.concatenate([prefix, suffix]),
+                       reuse_prefix="by-tokens", reuse_tokens=len(prefix),
+                       max_new_tokens=4),
+            eng.submit(suffix, max_new_tokens=4)]
+    before = kv_ops.launches
+    eng.run()
+    launches = kv_ops.launches - before
+    assert not eng._sharded and eng.n_shards == 3
+    assert eng.cache.k_dtensor.to_local().data_ptr() == \
+        eng.cache.k_pages.data_ptr()
+    return (dict(outputs=[eng.outputs[r.rid] for r in reqs],
+                 times=[list(r.token_times) for r in reqs],
+                 fetch=[r.fetch_done for r in reqs],
+                 events=list(cluster.events)),
+            pages, launches, len(man.refs))
+
+
+@pytest.mark.parametrize("fetch_mode", ["sync", "async"])
+def test_mesh_sharded_engine_on_the_card_matches_the_cpu(cuda, fetch_mode):
+    """A reduced lwm-7b of 8 layers (3 layer groups) served by the
+    mesh-sharded engine on a (1, 1) mesh on the card (nccl, one rank)
+    and on the CPU: equal tokens, token times and cluster events,
+    restored pages bit-equal, and on the card one kv_restore launch per
+    fetched chunk."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = reduce_config(get_config("lwm-7b"), num_layers=8)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    suffix = rng.integers(0, cfg.vocab_size, 8)
+    kv = paged_model.donor_prefix_kv(params, cfg, prefix)
+    started = not dist.is_initialized()
+    try:
+        card_mesh = make_debug_mesh((1, 1), device=cuda)
+        cpu_mesh = make_debug_mesh((1, 1), device="cpu")
+        cpu = _sharded_engine_run("cpu", params, cfg, prefix, kv, suffix,
+                                  cpu_mesh, fetch_mode)
+        card = _sharded_engine_run(cuda, _to(params, cuda), cfg, prefix, kv,
+                                   suffix, card_mesh, fetch_mode)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    assert card[0] == cpu[0]
+    for kind in ("k", "v"):
+        assert torch.equal(card[1][kind], cpu[1][kind]), kind
+    assert cpu[2] == 0 and card[2] == card[3] == 3 * 3 * 2
+
+
 @pytest.mark.parametrize("G", [3, 1])
 def test_kv_restore_layers_at_deepseek_shapes(cuda, G):
     """deepseek-moe-16b's fetched chunk: 16 tokens, H 16, D 128, in a group

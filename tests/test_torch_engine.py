@@ -2,8 +2,10 @@
 tests/test_live_engine.py::test_engine_reuse_matches_full_prefill, run
 against the port's own KVStore and held against the JAX LiveEngine on the
 same submits; each knob of the virtual-clock pipeline held against the
-JAX engine; the refusal of the knobs that later slices bring and of the
-JAX package's stores."""
+JAX engine; the mesh-sharded engine's per-shard flows held against the
+JAX engine's; the refusal of the JAX package's stores."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -106,14 +108,152 @@ def test_engine_mixed_batch_matches_jax(tiny_cfg, tiny_params, torch_params,
                                       for t in out)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("mesh", object()), ("mesh_shards", 2),
-])
-def test_engine_refuses_knobs_of_later_slices(knob, value, tiny_cfg,
-                                              torch_params):
-    with pytest.raises(NotImplementedError, match=knob):
-        LiveEngine(torch_params, tiny_cfg, KVStore(), device="cpu",
-                   **{knob: value})
+@pytest.fixture(scope="module")
+def sharded_model():
+    """A reduced lwm-7b of 8 layers (3 layer groups, so the shards really
+    split) in both packages from one JAX init, and the port's donor KV of
+    a 48-token prefix; a suffix and a plain prompt."""
+    from repro import configs as jax_configs
+    from repro.models import transformer as jax_tf
+
+    from repro_torch import configs
+
+    cfg = configs.reduce_config(configs.get_config("lwm-7b"), num_layers=8)
+    jcfg = jax_configs.reduce_config(jax_configs.get_config("lwm-7b"),
+                                     num_layers=8)
+    jp = jax_tf.init_params(jcfg, jax.random.PRNGKey(0))
+    params = from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    kv = paged_model.donor_prefix_kv(params, cfg, prefix)
+    return dict(cfg=cfg, jcfg=jcfg, jp=jp, params=params, prefix=prefix,
+                kv=kv, suffix=rng.integers(0, cfg.vocab_size, 8),
+                plain=rng.integers(0, cfg.vocab_size, 8))
+
+
+def _packages():
+    """(JAX modules, port modules) of a sharded engine run."""
+    import types
+
+    import repro.cluster.fairness as j_fair
+    import repro.cluster.network as j_net
+    import repro.cluster.storage as j_storage
+    import repro_torch.cluster.fairness as t_fair
+    import repro_torch.cluster.network as t_net
+    import repro_torch.cluster.storage as t_storage
+    return tuple(types.SimpleNamespace(
+        LiveEngine=eng, StorageCluster=st.StorageCluster,
+        StorageNode=st.StorageNode, BandwidthTrace=net.BandwidthTrace,
+        FairScheduler=fair.FairScheduler)
+        for eng, st, net, fair in ((JaxLiveEngine, j_storage, j_net, j_fair),
+                                   (LiveEngine, t_storage, t_net, t_fair)))
+
+
+def _sharded_run(m, params, cfg, model, *, fetch_mode, mesh_shards,
+                 fairness=False, **kw):
+    """One reuse and one plain request through a one-node cluster on the
+    virtual clock; the reuse request's restored rows are read at its
+    first token."""
+    cluster = m.StorageCluster([m.StorageNode("n0")])
+    cluster.register_prefix(model["prefix"], *model["kv"],
+                            tokens_per_chunk=16, resolutions=("240p",))
+    fair = m.FairScheduler(max_inflight=1) if fairness else None
+    pages = {}
+
+    def on_token(req, tok, t):
+        if len(req.token_times) == 1 and req.reuse_tokens:
+            ps = eng.cache.page_size
+            bt = np.asarray(eng.cache.seqs[req.rid].block_table)
+            idx = np.arange(req.reuse_tokens)
+            rows = bt[idx // ps] * ps + idx % ps
+            for kind, a in (("k", eng.cache.k_pages),
+                            ("v", eng.cache.v_pages)):
+                a = np.asarray(a)
+                pages[kind] = a.reshape(a.shape[0], -1, *a.shape[3:])[:,
+                                                                      rows]
+
+    eng = m.LiveEngine(params, cfg, cluster, fetch_mode=fetch_mode,
+                       bandwidth=m.BandwidthTrace.constant(0.0006),
+                       mesh_shards=mesh_shards, fairness=fair,
+                       on_token=on_token, **kw)
+    users = dict(user="alice", slo_tier="premium") if fairness else {}
+    others = dict(user="bob", slo_tier="standard") if fairness else {}
+    reqs = [eng.submit(np.concatenate([model["prefix"], model["suffix"]]),
+                       reuse_prefix="by-tokens", reuse_tokens=48,
+                       max_new_tokens=3, **users),
+            eng.submit(model["plain"], max_new_tokens=3, **others)]
+    eng.run()
+    assert eng.n_shards == mesh_shards
+    assert not eng._sharded  # every shard completed and untracked
+    log = dict(outputs=[eng.outputs[r.rid] for r in reqs],
+               times=[list(r.token_times) for r in reqs],
+               fetch=[(r.fetch_started, r.fetch_done, r.layers_ready,
+                       r.storage_hit) for r in reqs],
+               stats=dataclasses.asdict(eng.stats),
+               events=list(cluster.events),
+               fair=list(fair.events) if fairness else None)
+    return log, pages, cluster
+
+
+def _check_sharded_twin(sharded_model, monkeypatch, fetch_mode, mesh_shards,
+                        fairness=False):
+    """The port's sharded engine on a (1, 1) CPU mesh against the JAX
+    engine with ``mesh=None`` and the same ``mesh_shards`` (the JAX
+    engine's own mesh path fails in its Pallas kernel on the CPU, so it
+    runs the per-shard flows without laying the pages out)."""
+    import repro_torch.paged.cache as cache_mod
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    model = sharded_model
+    calls, splits = [], []
+    restore = cache_mod.kv_restore_layers
+    monkeypatch.setattr(cache_mod, "kv_restore_layers",
+                        lambda *a, **k: calls.append(1) or restore(*a, **k))
+    split = engine_mod.split_plan_shards
+    monkeypatch.setattr(engine_mod, "split_plan_shards",
+                        lambda *a: splits.append(split(*a)) or splits[-1])
+    jax_m, ours = _packages()
+    want, want_pages, _ = _sharded_run(
+        jax_m, model["jp"], model["jcfg"], model, fetch_mode=fetch_mode,
+        mesh_shards=mesh_shards, fairness=fairness)
+    mesh = make_debug_mesh((1, 1), device="cpu")
+    got, got_pages, cluster = _sharded_run(
+        ours, model["params"], model["cfg"], model, fetch_mode=fetch_mode,
+        mesh_shards=mesh_shards, fairness=fairness, mesh=mesh, device="cpu")
+    assert got == want
+    assert got["fetch"][0][1] is not None and got["fetch"][0][3] == "full"
+    for kind in ("k", "v"):
+        assert np.array_equal(got_pages[kind], want_pages[kind]), kind
+    man = next(iter(cluster.catalog.values())).manifest
+    assert len(calls) == len(man.refs) == 3 * 3 * 2  # one per chunk
+    (subs,) = splits
+    assert len(subs) == min(mesh_shards, 3) and all(sp.chunks for sp in subs)
+    return got
+
+
+@pytest.mark.parametrize("mesh_shards", [2, 3])
+@pytest.mark.parametrize("fetch_mode", ["sync", "async"])
+def test_mesh_sharded_engine_matches_jax(fetch_mode, mesh_shards,
+                                         sharded_model, monkeypatch):
+    """Twin of test_fleet.py::test_mesh_sharded_engine_matches_unsharded:
+    per-shard fetch plans through the one controller, with equal tokens,
+    token times, fetch times, stats and cluster events, restored pages
+    bit-equal and one ``kv_restore_layers`` call per chunk."""
+    _check_sharded_twin(sharded_model, monkeypatch, fetch_mode, mesh_shards)
+
+
+def test_mesh_sharded_engine_charges_fairness_once_as_jax(sharded_model,
+                                                          monkeypatch):
+    """Shadow requests leave the fairness bookkeeping alone: the real
+    request is charged once, when its last shard lands, and the fairness
+    log equals the JAX engine's."""
+    got = _check_sharded_twin(sharded_model, monkeypatch, "async", 3,
+                              fairness=True)
+    # (user, rid, kind, counter): one charge of alice's whole fetch
+    fetched = [e for e in got["fair"] if e[2] == "fetched"]
+    assert len(fetched) == 1 and fetched[0][:2] == ("alice", 0)
+    assert fetched[0][3] > 0
 
 
 def test_external_dispatch_matches_jax(tiny_cfg, tiny_params, torch_params,
