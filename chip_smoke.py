@@ -199,6 +199,18 @@ JAX or of the JAX package.  Phases:
    on the card and on the CPU: loss and grad norm within 2e-4 relative,
    the updated parameters within 5e-3 (lr 1e-3); reduced mamba2 trains
    through ``ssd_scan`` and its backward kernel.
+15. dry run: ``torch.library.opcheck`` of the custom ops
+   ``repro_torch::ssd_scan_fwd`` and ``ssd_scan_bwd`` on CUDA inputs (b 2,
+   s 128 and 100, nh 4, hd 32, S 16), which holds the fake implementation
+   against the kernels' outputs and must launch both; then, each in a
+   child process (its fake group of 256 or 512 ranks apart from phase
+   5d's group), ``python -m repro_torch.launch.dryrun`` for mamba2-2.7b x
+   prefill_32k x single and yi-9b x decode_32k x multipod at full width
+   on the production meshes over device type cuda: each ``ok``, 64
+   ``ssd_scan_fwd`` calls in the mamba2 trace, the card's allocated bytes
+   equal before and after the trace (nothing allocated); the roofline
+   terms (modeled for the H100 SXM's peaks), dominant term, collectives
+   by family and trace seconds are logged (``[dryrun]`` lines).
 
 TF32 is switched off for matrix products and convolutions, so every fp32
 product runs in full fp32.  Any failed check raises and the script exits
@@ -209,6 +221,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -259,7 +272,7 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    piece_len, ssd_scan_bwd_ref, ssd_scan_ref)
+    ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.token_delta import ops as td_ops  # noqa: E402
 from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_decode_frame_ref, token_delta_decode_frames_ref,
@@ -1935,17 +1948,13 @@ def scan_inputs(dev, b, s, nh, hd, G, S, seed):
 
 def scan_bound(b, s, nh, hd, G, S, Q):
     """(ms, "bytes" | "operations", fp32 SIMT ms) for one scan: inputs
-    read once and outputs written once; the products the function needs:
-    C.B^T once per group (lower triangle with its diagonal), and per head
-    M.X (lower triangle), the inter-chunk term and the state update.  The
-    kernel forms them in 3xTF32 on the tensor cores, three TF32 products
-    each; the third value is the same work in fp32 outside them."""
-    c = -(-s // Q)
-    tri = Q * (Q + 1) // 2
+    read once and outputs written once; the products the function needs
+    (``ssd_ops.scan_flops``, the op's FLOP formula).  The kernel forms
+    them in 3xTF32 on the tensor cores, three TF32 products each; the
+    third value is the same work in fp32 outside them."""
     n_bytes = 4 * (2 * b * s * nh * hd + b * s * nh + 2 * b * s * G * S
                    + b * nh * hd * S)
-    n_flops = 2 * b * c * (G * tri * S
-                           + nh * (tri * hd + 2 * Q * S * hd))
+    n_flops = ssd_ops.scan_flops(b, s, nh, hd, G, S, Q)
     ms, by = bound(n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
     return ms, by, n_flops / FP32_FLOPS_PER_S * 1e3
 
@@ -1999,19 +2008,13 @@ def ssd_scan_phase(dev, cfg, n_kernels: int):
 def scan_bwd_bound(b, s, nh, hd, G, S, Q):
     """(ms, "bytes" | "operations", fp32 SIMT ms) of one backward: x, a,
     B, C, dy and dstate read once, dx, da, dB and dC written once; the
-    products the chunked gradient needs per piece of P steps
-    (``ssd_scan.cu``): C.B^T once per group, and per head dY.X^T, M^T.dY,
-    W.B and W^T.C over the lower triangle, and the five [P, hd] x [hd, S]
-    products (the two sweeps, dY.h0, X.dH, B.dH^T).  The kernel forms
-    them in 3xTF32 on the tensor cores, three TF32 products each; the
-    third value is the same work in fp32 outside them."""
-    P = piece_len(min(Q, s))
-    c = -(-s // P)
-    tri = P * (P + 1) // 2
+    products the chunked gradient needs (``ssd_ops.scan_bwd_flops``, the
+    op's FLOP formula).  The kernel forms them in 3xTF32 on the tensor
+    cores, three TF32 products each; the third value is the same work in
+    fp32 outside them."""
     n_bytes = 4 * (3 * b * s * nh * hd + 2 * b * s * nh + 4 * b * s * G * S
                    + b * nh * hd * S)
-    n_flops = 2 * b * c * (G * tri * S + nh * (2 * tri * hd + 2 * tri * S
-                                               + 5 * P * hd * S))
+    n_flops = ssd_ops.scan_bwd_flops(b, s, nh, hd, G, S, Q)
     ms, by = bound(n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
     return ms, by, n_flops / FP32_FLOPS_PER_S * 1e3
 
@@ -2510,6 +2513,78 @@ def zoo_train_reference(dev) -> None:
                if arch == "mamba2-2.7b" else ""))
 
 
+# -- phase 15: the dry run ----------------------------------------------------
+
+# the two full-width combinations traced on the production meshes, and the
+# ssd_scan calls the Mamba2 one must trace (one per layer)
+DRYRUN_CASES = (("mamba2-2.7b", "prefill_32k", "single"),
+                ("yi-9b", "decode_32k", "multipod"))
+DRYRUN_SCANS = 64
+
+
+def dryrun_phase(dev) -> None:
+    """``ssd_scan``'s two custom ops through ``torch.library.opcheck`` on
+    the card (the fake implementation against the kernel's outputs), then
+    the dry run of ``DRYRUN_CASES`` in child processes (the fake process
+    group of 256 or 512 ranks must not meet phase 5d's group)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def f(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    for s in (128, 100):
+        args = (f(2, s, 4, 32), -torch.nn.functional.softplus(f(2, s, 4)),
+                f(2, s, 1, 16), f(2, s, 1, 16))
+        ssd_ops.launches = ssd_ops.bwd_launches = 0
+        torch.library.opcheck(torch.ops.repro_torch.ssd_scan_fwd.default,
+                              args + (SCAN_CHUNK,))
+        torch.library.opcheck(torch.ops.repro_torch.ssd_scan_bwd.default,
+                              args + (f(2, s, 4, 32), f(2, 4, 32, 16),
+                                      SCAN_CHUNK))
+        check(ssd_ops.launches > 0 and ssd_ops.bwd_launches > 0,
+              f"opcheck at s {s} launched no kernel")
+        log(f"[dryrun] opcheck of ssd_scan_fwd and ssd_scan_bwd at b 2, s "
+            f"{s}, nh 4, hd 32, S 16 holds on the card ({ssd_ops.launches} "
+            f"and {ssd_ops.bwd_launches} launches)")
+    out = ROOT / "build" / "dryrun_phase15"
+    t0 = time.perf_counter()
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(out)],
+        cwd=ROOT, env={**os.environ,
+                       "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape, mesh in DRYRUN_CASES]
+    for (arch, shape, mesh), child in zip(DRYRUN_CASES, children):
+        text, _ = child.communicate(timeout=600)
+        check(child.returncode == 0,
+              f"dry run of {arch} x {shape} x {mesh} exited "
+              f"{child.returncode}:\n{text[-3000:]}")
+        rec = json.loads((out / f"{arch}.{shape}.{mesh}.json").read_text())
+        check(rec["status"] == "ok", f"{arch} x {shape} x {mesh}: "
+              f"{rec['status']} {rec.get('error', '')}")
+        mem = rec["device_memory"]
+        check(mem["allocated_before"] == mem["allocated_after"],
+              f"{arch}: the trace moved the card's allocated memory {mem}")
+        scans = rec["custom_op_calls"].get("repro_torch::ssd_scan_fwd", 0)
+        want = DRYRUN_SCANS if arch == "mamba2-2.7b" else 0
+        check(scans == want, f"{arch}: {scans} ssd_scan_fwd calls traced, "
+              f"not {want}")
+        rf, coll = rec["roofline"], rec["collectives"]
+        log(f"[dryrun] {arch} x {shape} x {mesh} ({rec['n_devices']} fake "
+            f"ranks): ok, trace {rec['trace_s']} s, wall {rec['wall_s']} s;"
+            f" compute {rf['compute_s']:.6g} s, memory {rf['memory_s']:.6g} "
+            f"s, collective {rf['collective_s']:.6g} s (modeled for the "
+            f"H100 SXM's peaks), dominant {rf['dominant']}; per device "
+            f"{rec['flops']:.6g} FLOPs, {rf['hlo_bytes_per_device']:.6g} "
+            f"bytes; collectives "
+            + ", ".join(f"{k} {coll[k]:.6g} B x{coll['counts'][k]}"
+                        for k in coll["counts"])
+            + f"; ssd_scan_fwd calls {scans}; card allocated "
+            f"{mem['allocated_before']} B before and after")
+    log(f"[dryrun] phase 15 wall {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke.py: no CUDA device")
@@ -2642,6 +2717,7 @@ def main() -> int:
     small_engine(dev, DS_ARCH, num_layers=4)
     zoo_reference(dev)
     zoo_train_reference(dev)
+    dryrun_phase(dev)
 
     n_pa = sum(per_shape.values())
     check(launches["paged_attention"] == n_pa,

@@ -181,3 +181,39 @@ def unpack_single_frame(frame: np.ndarray, lay: IntraLayout,
     toks = geom.tokens_in_frame(frame_idx)
     slots = (toks - frame_idx) // geom.n_frames
     return toks, tile_inverse(tiles[slots], lay)
+
+
+# ---------------------------------------------------------------------------
+# Baseline layouts (for benchmark comparisons; see bench_slicing)
+# ---------------------------------------------------------------------------
+
+def layer_slice_frames(q: np.ndarray) -> np.ndarray:
+    """llm.265-style: slice along layers; frame f = layers [3f, 3f+3) as
+    [T, H*D, 3]."""
+    T, L, H, D = q.shape
+    L3 = (L // 3) * 3
+    v = q[:, :L3].reshape(T, L3 // 3, 3, H * D)
+    return np.ascontiguousarray(v.transpose(1, 0, 3, 2))  # [F, T, HD, 3]
+
+
+def head_slice_frames(q: np.ndarray) -> np.ndarray:
+    """Slice along heads: frame h = head h as [T, L*D] replicated to 3ch."""
+    T, L, H, D = q.shape
+    v = q.transpose(2, 0, 1, 3).reshape(H, T, L * D)
+    return np.repeat(v[..., None], 3, axis=-1)
+
+
+def token_stitched_single_frame(q_chunk: np.ndarray,
+                                lay: IntraLayout) -> np.ndarray:
+    """Fig. 12 baseline: all token tiles stitched spatially in ONE frame."""
+    tiles = tile_forward(q_chunk, lay)  # [T, 3, th, tw]
+    T = tiles.shape[0]
+    cols = int(np.ceil(np.sqrt(T)))
+    rows = -(-T // cols)
+    th, tw = lay.tile
+    out = np.zeros((1, rows * th, cols * tw, 3), np.uint8)
+    for t in range(T):
+        r, c = divmod(t, cols)
+        out[0, r * th:(r + 1) * th, c * tw:(c + 1) * tw] = \
+            tiles[t].transpose(1, 2, 0)
+    return out

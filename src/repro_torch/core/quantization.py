@@ -7,9 +7,12 @@ layout, prediction, entropy coding — is bit-exact.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 QOFF = 128
 
@@ -26,3 +29,29 @@ def quantize(kv: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def dequantize(q: np.ndarray, scales: np.ndarray) -> np.ndarray:
     """Inverse of quantize (exact for the stored integers)."""
     return (q.astype(np.float32) - QOFF) * scales[None, :, :, None]
+
+
+def quantize_torch(kv, scales: Optional[torch.Tensor] = None,
+                   device: DeviceLike = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor variant on ``device`` (the card unless named), the
+    counterpart of ``quantize_jnp``: kv [T, L, H, D] -> (q uint8, scales
+    fp32 [L, H]); with ``scales`` given, those are used."""
+    device = resolve_device(device)
+    kv = torch.as_tensor(kv, device=device).to(torch.float32)
+    if scales is None:
+        absmax = kv.abs().amax(dim=(0, 3))
+        scales = torch.clamp_min(absmax, 1e-8) / 127.0
+    else:
+        scales = torch.as_tensor(scales, device=device)
+    q = torch.clamp(torch.round(kv / scales[None, :, :, None]), -127, 127)
+    return (q + QOFF).to(torch.uint8), scales
+
+
+def dequantize_torch(q, scales, device: DeviceLike = None) -> torch.Tensor:
+    """Inverse of ``quantize_torch`` on ``device``, the counterpart of
+    ``dequantize_jnp``."""
+    device = resolve_device(device)
+    q = torch.as_tensor(q, device=device)
+    scales = torch.as_tensor(scales, device=device)
+    return (q.to(torch.float32) - QOFF) * scales[None, :, :, None]

@@ -12,7 +12,17 @@ block per head, direction and 64 x 64 tile of the state), then one block
 per piece and head; then two PyTorch sums of dB and dC over a group's
 heads) on the card and
 ``ssd_scan_bwd_ref`` on the CPU.  Otherwise nothing is saved and the
-forward launches exactly as it does for serving."""
+forward launches exactly as it does for serving.
+
+The forward and the backward are the custom ops ``repro_torch::
+ssd_scan_fwd`` and ``repro_torch::ssd_scan_bwd``: the kernel is their
+``cuda`` implementation and the plain version their ``cpu`` one, a fake
+implementation gives their outputs' shapes (so a trace under
+``FakeTensorMode`` reaches no kernel), a FLOP formula counts them for
+``torch.utils.flop_counter`` (``scan_flops``, ``scan_bwd_flops``), and a
+sharding strategy lets DTensors call them: batch and heads shard, B and
+C stay replicated (their G groups cannot follow a head split), and the
+backward's dB and dC are partial sums over a head split."""
 from __future__ import annotations
 
 import ctypes
@@ -20,6 +30,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import (piece_len, ssd_scan_bwd_ref,
@@ -148,6 +161,29 @@ def _check(xdt, a_log, Bm, Cm, Q: int, grad: bool = False) -> None:
                          f"bytes of shared memory, more than {MAX_SMEM}")
 
 
+def scan_flops(b: int, s: int, nh: int, hd: int, G: int, S: int,
+               Q: int) -> int:
+    """The products one forward needs (chunks of Q steps): C.B^T once per
+    group (lower triangle with its diagonal), and per head M.X (lower
+    triangle), the inter-chunk term and the state update."""
+    c = -(-s // Q)
+    tri = Q * (Q + 1) // 2
+    return 2 * b * c * (G * tri * S + nh * (tri * hd + 2 * Q * S * hd))
+
+
+def scan_bwd_flops(b: int, s: int, nh: int, hd: int, G: int, S: int,
+                   Q: int) -> int:
+    """The products the chunked gradient needs per piece of P steps
+    (``ssd_scan.cu``): C.B^T once per group, and per head dY.X^T, M^T.dY,
+    W.B and W^T.C over the lower triangle, and the five [P, hd] x [hd, S]
+    products (the two sweeps, dY.h0, X.dH, B.dH^T)."""
+    P = piece_len(min(Q, s))
+    c = -(-s // P)
+    tri = P * (P + 1) // 2
+    return 2 * b * c * (G * tri * S + nh * (2 * tri * hd + 2 * tri * S
+                                            + 5 * P * hd * S))
+
+
 def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,15 +205,17 @@ def ssd_scan(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
 
 class _Scan(torch.autograd.Function):
     """The scan with its gradient: the forward saves its (unpadded)
-    inputs; the backward runs the backward kernel on the card and
-    ``ssd_scan_bwd_ref`` on the CPU.  A final state that the loss does not
-    use reaches the backward as zeros (materialised grads)."""
+    inputs; the backward is the ``ssd_scan_bwd`` op.  A final state that
+    the loss does not use reaches the backward as zeros (materialised
+    grads)."""
 
     @staticmethod
     def forward(ctx, xdt, a_log, Bm, Cm, chunk):
         ctx.chunk = chunk
         ctx.save_for_backward(xdt, a_log, Bm, Cm)
-        return _forward(xdt, a_log, Bm, Cm, chunk, grad=True)
+        if xdt.device.type == "cuda":
+            _check(xdt, a_log, Bm, Cm, min(chunk, xdt.shape[1]), grad=True)
+        return _forward(xdt, a_log, Bm, Cm, chunk)
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -187,14 +225,22 @@ class _Scan(torch.autograd.Function):
                      zip(grads, ctx.needs_input_grad)) + (None,)
 
 
-def _forward(xdt, a_log, Bm, Cm, chunk: int, grad: bool = False):
-    if xdt.device.type == "cpu":
-        return ssd_scan_ref(xdt, a_log, Bm, Cm, chunk=chunk)
-    if xdt.device.type != "cuda":
+def _forward(xdt, a_log, Bm, Cm, chunk: int):
+    if xdt.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel for {xdt.device}")
+    return tuple(torch.ops.repro_torch.ssd_scan_fwd(xdt, a_log, Bm, Cm,
+                                                    chunk))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=(),
+                         device_types="cuda")
+def _scan_fwd_op(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (two launches) on CUDA tensors."""
     b, s = xdt.shape[:2]
     Q = min(chunk, s)
-    _check(xdt, a_log, Bm, Cm, Q, grad=grad)
+    _check(xdt, a_log, Bm, Cm, Q)
     nh, hd = xdt.shape[2], xdt.shape[3]
     G, S = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(xdt)
@@ -225,6 +271,38 @@ def _forward(xdt, a_log, Bm, Cm, chunk: int, grad: bool = False):
     return (y[:, :s] if pad else y), state
 
 
+@_scan_fwd_op.register_kernel("cpu")
+def _scan_fwd_cpu(xdt, a_log, Bm, Cm, chunk):
+    return tuple(t.contiguous()
+                 for t in ssd_scan_ref(xdt, a_log, Bm, Cm, chunk=chunk))
+
+
+def _kernel_pad(xdt, step: int) -> int:
+    """The steps the kernel pads s with (its outputs are slices of the
+    padded length); the CPU version returns whole tensors."""
+    b, s, nh = xdt.shape[:3]
+    if xdt.device.type != "cuda" or b == 0 or nh == 0:
+        return 0
+    return (-s) % step
+
+
+@_scan_fwd_op.register_fake
+def _scan_fwd_fake(xdt, a_log, Bm, Cm, chunk):
+    b, s, nh, hd = xdt.shape
+    _check(xdt, a_log, Bm, Cm, min(chunk, s))
+    pad = _kernel_pad(xdt, min(chunk, s))
+    y = xdt.new_empty((b, s + pad, nh, hd), dtype=torch.float32)
+    return (y[:, :s] if pad else y,
+            xdt.new_empty((b, nh, hd, Bm.shape[3]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _scan_fwd_flop(xdt_shape, a_shape, B_shape, C_shape, chunk, *args,
+                   **kwargs) -> int:
+    b, s, nh, hd = xdt_shape
+    return scan_flops(b, s, nh, hd, B_shape[2], B_shape[3], min(chunk, s))
+
+
 def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
                  Cm: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor, *,
                  chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor,
@@ -234,14 +312,16 @@ def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     version on CPU tensors, the backward kernel on CUDA tensors (the
     inputs as ``ssd_scan`` checks them).  ``ssd_scan``'s gradient calls
     it; it is public for the card's checks and timing."""
-    if xdt.device.type == "cpu":
-        return ssd_scan_bwd_ref(xdt, a_log, Bm, Cm, dy, dstate, chunk=chunk)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel for {xdt.device}")
+    return tuple(torch.ops.repro_torch.ssd_scan_bwd(
+        xdt, a_log, Bm, Cm, dy.contiguous(), dstate.contiguous(), chunk))
+
+
+def _check_bwd(xdt, a_log, Bm, Cm, dy, dstate, chunk: int) -> None:
     b, s, nh, hd = xdt.shape
     _check(xdt, a_log, Bm, Cm, min(chunk, s), grad=True)
-    G, S = Bm.shape[2], Bm.shape[3]
-    dy, dstate = dy.contiguous(), dstate.contiguous()
+    S = Bm.shape[3]
     for name, t, shape in (("dy", dy, xdt.shape),
                            ("dstate", dstate, (b, nh, hd, S))):
         if t.device != xdt.device or t.dtype != torch.float32 \
@@ -249,6 +329,19 @@ def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
             raise ValueError(f"ssd_scan backward: {name} {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}, wants float32 "
                              f"{tuple(shape)} on {xdt.device}")
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _scan_bwd_op(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The backward kernel (three launches, then two sums) on CUDA
+    tensors."""
+    b, s, nh, hd = xdt.shape
+    _check_bwd(xdt, a_log, Bm, Cm, dy, dstate, chunk)
+    G, S = Bm.shape[2], Bm.shape[3]
     if b == 0 or s == 0 or nh == 0:
         return (torch.zeros_like(xdt), torch.zeros_like(a_log),
                 torch.zeros_like(Bm), torch.zeros_like(Cm))
@@ -283,3 +376,47 @@ def ssd_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     return (dx[:, :s], da[:, :s],
             dBh[:, :s].reshape(b, s, G, hpg, S).sum(3),
             dCh[:, :s].reshape(b, s, G, hpg, S).sum(3))
+
+
+@_scan_bwd_op.register_kernel("cpu")
+def _scan_bwd_cpu(xdt, a_log, Bm, Cm, dy, dstate, chunk):
+    return tuple(t.contiguous() for t in ssd_scan_bwd_ref(
+        xdt, a_log, Bm, Cm, dy, dstate, chunk=chunk))
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_fake(xdt, a_log, Bm, Cm, dy, dstate, chunk):
+    _check_bwd(xdt, a_log, Bm, Cm, dy, dstate, chunk)
+    b, s = xdt.shape[:2]
+    pad = _kernel_pad(xdt, piece_len(min(chunk, s)))
+    dx, da = (t.new_empty((b, s + pad) + tuple(t.shape[2:]),
+                          dtype=torch.float32) for t in (xdt, a_log))
+    return (dx[:, :s] if pad else dx, da[:, :s] if pad else da,
+            Bm.new_empty(Bm.shape, dtype=torch.float32),
+            Cm.new_empty(Cm.shape, dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _scan_bwd_flop(xdt_shape, a_shape, B_shape, C_shape, dy_shape,
+                   dstate_shape, chunk, *args, **kwargs) -> int:
+    b, s, nh, hd = xdt_shape
+    return scan_bwd_flops(b, s, nh, hd, B_shape[2], B_shape[3], chunk)
+
+
+# DTensor strategies, one mesh dim at a time: replicated; batch split;
+# heads split (B and C replicated, their gradients partial sums)
+@register_sharding(torch.ops.repro_torch.ssd_scan_fwd.default)
+def _scan_fwd_sharding(xdt, a_log, Bm, Cm, chunk):
+    R = Replicate()
+    return [([R, R], [R, R, R, R, None]),
+            ([Shard(0), Shard(0)], [Shard(0)] * 4 + [None]),
+            ([Shard(2), Shard(1)], [Shard(2), Shard(2), R, R, None])]
+
+
+@register_sharding(torch.ops.repro_torch.ssd_scan_bwd.default)
+def _scan_bwd_sharding(xdt, a_log, Bm, Cm, dy, dstate, chunk):
+    R = Replicate()
+    return [([R] * 4, [R] * 6 + [None]),
+            ([Shard(0)] * 4, [Shard(0)] * 6 + [None]),
+            ([Shard(2), Shard(2), Partial(), Partial()],
+             [Shard(2), Shard(2), R, R, Shard(2), Shard(1), None])]

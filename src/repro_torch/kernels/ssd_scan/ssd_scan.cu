@@ -1474,12 +1474,12 @@ int ssd_scan_f32(const void* x, const void* a_log, const void* Bm,
   float* sf = static_cast<float*>(state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  if (cb_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ssd_cb_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(cb_smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // set on every call: the backward sets this kernel's limit to its own
+  // pieces' need, which may be below this chunk's (and below 48 KiB)
+  err = cudaFuncSetAttribute(ssd_cb_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(cb_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   ssd_cb_kernel<<<dim3(n_chunks, G, b), kCbThreads, cb_smem, st>>>(
       bf, cf, cb, s, G, S, Qk);
   err = cudaGetLastError();

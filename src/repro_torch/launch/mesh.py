@@ -6,10 +6,16 @@ touches device or process-group state.  ``make_debug_mesh`` starts a
 one-process group itself when none exists, from an in-process
 ``HashStore``: it opens no port and reads no ``MASTER_ADDR`` or
 ``MASTER_PORT``, so any number of test processes can each hold one.
+
+``fake_group`` opens the dry run's stand-in for a job of 256 or 512
+cards: a default group over the ``fake`` backend, in which this process
+is rank 0 and every collective returns at once without moving data.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator
 
 import torch
 import torch.distributed as dist
@@ -41,9 +47,32 @@ def device_count() -> int:
             else torch.cuda.device_count())
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
-    """The production mesh over the cards of the default process group:
-    (16, 16) over ("data", "model"), or (2, 16, 16) with "pod"."""
+@contextlib.contextmanager
+def fake_group(world_size: int) -> Iterator[None]:
+    """A default process group of ``world_size`` ranks over the ``fake``
+    backend for the body of the ``with``, destroyed on exit.  This
+    process is rank 0; collectives complete at once and move nothing, so
+    it serves tracing only.  Raises if a default group exists."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a default process group of world size "
+            f"{dist.get_world_size()} exists: destroy it before opening a "
+            f"fake one")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> DeviceMesh:
+    """The production mesh over the ranks of the default process group:
+    (16, 16) over ("data", "model"), or (2, 16, 16) with "pod", of the
+    card's device type unless ``device`` names another."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
@@ -52,7 +81,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
         raise RuntimeError(
             f"mesh {shape} needs {n} devices, found {found}; start one "
             f"process per card with torch.distributed before building it")
-    return DeviceMesh("cuda", torch.arange(n).reshape(shape),
+    return DeviceMesh(resolve_device(device).type,
+                      torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
 
 

@@ -18,6 +18,11 @@ q_pos [b, s]; k_pos [b, S].
 
 The cache functions return new tensors and leave the cache they were
 given as it was, as the JAX functions do.
+
+Under a sharding rule context on DTensors (the dry run), each step runs
+as a local region (``sharding.rules.local_region``) laid out by the
+logical axes below, and ``shard_hint`` lays the results out at the JAX
+package's ten sites; otherwise both are plain calls.
 """
 from __future__ import annotations
 
@@ -30,8 +35,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import apply_rope
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import local_region, shard_hint
 
 NEG_INF = -1e30
+
+X_AXES = ("batch", "seq", None)
+POS_AXES = ("batch", "seq")
+Q_AXES = ("batch", "seq", "heads", "head_dim")
+KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
+CACHE_AXES = {"k": ("batch", "cache_seq", "kv_heads", "head_dim"),
+              "v": ("batch", "cache_seq", "kv_heads", "head_dim")}
+# the projections' weights inside a region: the FSDP dim gathered
+_W_AXES = {"wq": (None, "heads", None), "wk": (None, "kv_heads", None),
+           "wv": (None, "kv_heads", None), "bq": ("heads", None),
+           "bk": ("kv_heads", None), "bv": ("kv_heads", None)}
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -70,17 +88,20 @@ def _pad_seq(x: torch.Tensor, n: int, value: float = 0.0) -> torch.Tensor:
 
 
 def _online_softmax_step(m, l, acc, qblk, kblk, vblk, bias, scale):
-    """One kv block of the flash-style recurrence; m/l [b, K, g, Bq],
-    acc [b, K, g, Bq, hd]."""
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qblk, kblk
+    """One kv block of the flash-style recurrence for every q block at
+    once: qblk [b, n, Bq, K, g, hd]; kblk/vblk [b, Bk, K, hd] (one kv
+    block for all) or [b, n, Bk, K, hd] (one per q block); bias [b, n,
+    Bq, Bk]; m/l [b, n, K, g, Bq], acc [b, n, K, g, Bq, hd]."""
+    per_q = "n" if kblk.dim() == 5 else ""
+    logits = torch.einsum(f"bnqkgd,b{per_q}skd->bnkgqs", qblk, kblk
                           ).to(torch.float32) * scale
-    logits = logits + bias[:, None, None]
+    logits = logits + bias[:, :, None, None]
     m_new = torch.maximum(m, logits.amax(dim=-1))
     alpha = torch.exp(m - m_new)
     p = torch.exp(logits - m_new[..., None])
     l = l * alpha + p.sum(dim=-1)
     acc = acc * alpha[..., None] + torch.einsum(
-        "bkgqs,bskd->bkgqd", p.to(vblk.dtype), vblk)
+        f"bnkgqs,b{per_q}skd->bnkgqd", p.to(vblk.dtype), vblk)
     return m_new, l, acc
 
 
@@ -100,68 +121,91 @@ def _blocks(q, k, v, q_pos, k_pos, block_q, block_k):
     return qp, qpos, kp, vp, kpos, nq, nk
 
 
+def _finish(m, l, acc, s: int, dtype) -> torch.Tensor:
+    """acc / l of every q block, as [b, s, H, hd]."""
+    b, nq, K, g, Bq, hd = acc.shape
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * Bq, K * g, hd)
+    return out[:, :s].to(dtype)
+
+
+def _start(q, K: int, nq: int, block_q: int):
+    b, _, H, hd = q.shape
+    g = H // K
+    f32 = dict(dtype=torch.float32)
+    return (q.new_full((b, nq, K, g, block_q), NEG_INF, **f32),
+            q.new_zeros((b, nq, K, g, block_q), **f32),
+            q.new_zeros((b, nq, K, g, block_q, hd), **f32))
+
+
 def _attend_blocked(q, k, v, q_pos, k_pos, *, causal, window,
                     block_q: int = 512, block_k: int = 1024):
-    """Flash-style online-softmax attention, O(block) memory.  Padded q
-    rows produce garbage that is sliced away."""
-    b, s, H, hd = q.shape
-    K = k.shape[2]
-    g = H // K
+    """Flash-style online-softmax attention, O(block) memory per q block,
+    every q block at once (one step per kv block).  Padded q rows produce
+    garbage that is sliced away."""
+    hd = q.shape[-1]
     qp, qpos, kp, vp, kpos, nq, nk = _blocks(q, k, v, q_pos, k_pos,
                                              block_q, block_k)
     scale = 1.0 / math.sqrt(hd)
-    outs = []
-    for qi in range(nq):
-        m = q.new_full((b, K, g, block_q), NEG_INF, dtype=torch.float32)
-        l = q.new_zeros((b, K, g, block_q), dtype=torch.float32)
-        acc = q.new_zeros((b, K, g, block_q, hd), dtype=torch.float32)
-        for kj in range(nk):
-            bias = _mask_bias(qpos[:, qi], kpos[:, kj], causal=causal,
-                              window=window)
-            m, l, acc = _online_softmax_step(m, l, acc, qp[:, qi],
-                                             kp[:, kj], vp[:, kj], bias,
-                                             scale)
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))  # [b, Bq, K, g, hd]
-    out = torch.stack(outs, dim=1).reshape(b, nq * block_q, H, hd)
-    return out[:, :s].to(q.dtype)
+    m, l, acc = _start(q, k.shape[2], nq, block_q)
+    for kj in range(nk):
+        bias = _mask_bias(qpos, kpos[:, kj, None], causal=causal,
+                          window=window)
+        m, l, acc = _online_softmax_step(m, l, acc, qp, kp[:, kj],
+                                         vp[:, kj], bias, scale)
+    return _finish(m, l, acc, q.shape[1], q.dtype)
 
 
 def _attend_blocked_windowed(q, k, v, q_pos, k_pos, *, window: int,
                              block_q: int = 512, block_k: int = 1024):
     """Sliding-window attention with block skipping: each q block visits
     only the ~(window + block_q) / block_k kv blocks that can intersect
-    its window.  Requires aligned q/k positions (prefill)."""
-    b, s, H, hd = q.shape
-    K = k.shape[2]
-    g = H // K
+    its window (every q block at once: step j gathers each q block's j-th
+    kv block).  Requires aligned q/k positions (prefill)."""
+    hd = q.shape[-1]
     qp, qpos, kp, vp, kpos, nq, nk = _blocks(q, k, v, q_pos, k_pos,
                                              block_q, block_k)
     n_inner = (window + block_q) // block_k + 2
     scale = 1.0 / math.sqrt(hd)
-    outs = []
-    for qi in range(nq):
-        m = q.new_full((b, K, g, block_q), NEG_INF, dtype=torch.float32)
-        l = q.new_zeros((b, K, g, block_q), dtype=torch.float32)
-        acc = q.new_zeros((b, K, g, block_q, hd), dtype=torch.float32)
-        for j in range(n_inner):
-            blk = (qi * block_q - window) // block_k + j
-            blk_c = min(max(blk, 0), nk - 1)
-            bias = _mask_bias(qpos[:, qi], kpos[:, blk_c], causal=True,
-                              window=window)
-            if not 0 <= blk <= nk - 1:
-                bias = torch.full_like(bias, NEG_INF)
-            m, l, acc = _online_softmax_step(m, l, acc, qp[:, qi],
-                                             kp[:, blk_c], vp[:, blk_c],
-                                             bias, scale)
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))
-    out = torch.stack(outs, dim=1).reshape(b, nq * block_q, H, hd)
-    return out[:, :s].to(q.dtype)
+    m, l, acc = _start(q, k.shape[2], nq, block_q)
+    first = (torch.arange(nq, device=q.device) * block_q - window) \
+        // block_k
+    for j in range(n_inner):
+        blk = first + j
+        blk_c = torch.clamp(blk, 0, nk - 1)
+        bias = _mask_bias(qpos, kpos[:, blk_c], causal=True, window=window)
+        outside = (blk < 0) | (blk > nk - 1)
+        bias = torch.where(outside[None, :, None, None], NEG_INF, bias)
+        m, l, acc = _online_softmax_step(m, l, acc, qp, kp[:, blk_c],
+                                         vp[:, blk_c], bias, scale)
+    return _finish(m, l, acc, q.shape[1], q.dtype)
+
+
+def _kv_for_local_heads(q, k, v):
+    """The kv heads that this rank's query heads read, when a region
+    holds a slice of the query heads and every kv head (GQA with fewer
+    kv heads than the model axis); k and v themselves otherwise."""
+    H_l, K_l = q.shape[2], k.shape[2]
+    H = rules.global_size("heads", H_l)
+    if K_l != rules.global_size("kv_heads", K_l) or H_l == H:
+        return k, v
+    g = H // K_l
+    h0 = rules.local_offset("heads")
+    k0, k1 = h0 // g, (h0 + H_l - 1) // g + 1
+    return k[:, :, k0:k1], v[:, :, k0:k1]
 
 
 def attend(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
            blocked_threshold: int = 2048):
+    return local_region(_attend_local, (q, k, v, q_pos, k_pos, causal,
+                                        window, blocked_threshold),
+                        (Q_AXES, KV_AXES, KV_AXES, POS_AXES, POS_AXES),
+                        Q_AXES)
+
+
+def _attend_local(q, k, v, q_pos, k_pos, causal: bool, window: int,
+                  blocked_threshold: int):
+    k, v = _kv_for_local_heads(q, k, v)
     big = q.shape[1] * k.shape[1] > blocked_threshold ** 2
     if big and causal and window > 0 and q.shape[1] == k.shape[1]:
         return _attend_blocked_windowed(q, k, v, q_pos, k_pos,
@@ -200,11 +244,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, spec: CacheSpec,
 
 def write_slot(cache_t: torch.Tensor, tok: torch.Tensor,
                slot: int) -> torch.Tensor:
-    """``cache_t`` [..., S, K, hd] (S on dim -3) with the one-token
-    ``tok`` [..., 1, K, hd] at ``slot``, out of place.  A slot past the
-    end writes the last one, as ``jax.lax.dynamic_update_slice`` clamps
-    its start."""
+    """``cache_t`` [b, S, K, hd] with the one-token ``tok`` [b, 1, K, hd]
+    at ``slot``, out of place.  A slot past the end writes the last one,
+    as ``jax.lax.dynamic_update_slice`` clamps its start."""
     slot = min(slot, cache_t.shape[-3] - 1)
+    return local_region(_write_slot_local, (cache_t, tok, slot),
+                        (CACHE_AXES["k"], KV_AXES), CACHE_AXES["k"])
+
+
+def _write_slot_local(cache_t: torch.Tensor, tok: torch.Tensor,
+                      slot: int) -> torch.Tensor:
+    slot -= rules.local_offset("cache_seq")
+    if not 0 <= slot < cache_t.shape[-3]:
+        return cache_t.clone()  # another rank's shard holds the slot
     idx = torch.tensor([slot], device=cache_t.device)
     return cache_t.index_copy(cache_t.dim() - 3, idx, tok.to(cache_t.dtype))
 
@@ -215,6 +267,23 @@ def write_slot(cache_t: torch.Tensor, tok: torch.Tensor,
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
+    w = {n: p[n] for n in _W_AXES if n in p}
+    q, k, v = local_region(_project_qkv_local, (w, x, cfg, positions),
+                           (_W_AXES, X_AXES, None, POS_AXES),
+                           [Q_AXES, KV_AXES, KV_AXES])
+    q = shard_hint(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_hint(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard_hint(v, ("batch", "seq", "kv_heads", "head_dim"))
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return rules.einsum("bshk,hkd->bsd", out, wo, Q_AXES,
+                        ("heads", "head_dim", None), X_AXES)
+
+
+def _project_qkv_local(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -231,7 +300,7 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Train / no-cache forward over a full sequence."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     out = attend(q, k, v, positions, positions, causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return _out_proj(out, p["wo"])
 
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -242,8 +311,18 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(p, x, cfg, positions)
     window = spec.capacity if spec.windowed else 0
     out = attend(q, k, v, positions, positions, causal=causal, window=window)
-    s = x.shape[1]
-    new_k, new_v = cache["k"].clone(), cache["v"].clone()
+    new_k, new_v = local_region(
+        _fill_cache_local, (cache["k"], cache["v"], k, v, positions, spec),
+        (CACHE_AXES["k"], CACHE_AXES["v"], KV_AXES, KV_AXES, POS_AXES),
+        [CACHE_AXES["k"], CACHE_AXES["v"]])
+    new_k = shard_hint(new_k, CACHE_AXES["k"])
+    new_v = shard_hint(new_v, CACHE_AXES["v"])
+    return _out_proj(out, p["wo"]), {"k": new_k, "v": new_v}
+
+
+def _fill_cache_local(ck, cv, k, v, positions, spec: CacheSpec):
+    s = k.shape[1]
+    new_k, new_v = ck.clone(), cv.clone()
     if spec.windowed and s > spec.capacity:
         # only the trailing window lands in the ring buffer, in slots
         # pos % capacity
@@ -254,19 +333,99 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         new_k[:, :s] = k.to(new_k.dtype)
         new_v[:, :s] = v.to(new_v.dtype)
-    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
-            {"k": new_k, "v": new_v})
+    return new_k, new_v
 
 
 def _valid_slots(spec: CacheSpec, pos: int, last: int,
-                 device) -> torch.Tensor:
-    """Slot i holds a token iff i <= last (before the ring wraps, later
-    slots are empty), or always once the ring is full (windowed, pos >=
-    capacity): ring slots hold positions in (pos - capacity, pos], all
-    attendable under the window."""
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Slot i (of the slot indices ``idx``) holds a token iff i <= last
+    (before the ring wraps, later slots are empty), or always once the
+    ring is full (windowed, pos >= capacity): ring slots hold positions
+    in (pos - capacity, pos], all attendable under the window."""
     if spec.windowed and pos >= spec.capacity:
-        return torch.ones(spec.capacity, dtype=torch.bool, device=device)
-    return torch.arange(spec.capacity, device=device) <= last
+        return torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    return idx <= last
+
+
+# a decode region holds every query head of its kv heads, and the cache's
+# slots of its cache_seq shard
+_DQ_AXES = ("batch", "seq", None, "head_dim")
+_DOUT_AXES = ("batch", "kv_heads", None, "head_dim")
+
+
+def _decode_attend(q, k, v, ck, cv, cfg: ModelConfig, pos: int,
+                   spec: CacheSpec, token: bool) -> torch.Tensor:
+    """The decode attention [b, 1, H, hd] of the queries q [b, 1, H, hd]
+    over the cache (``token``: the stale cache without the token's slot,
+    plus the token's own k/v; otherwise the cache that holds it)."""
+    b = q.shape[0]
+    out = local_region(_decode_attend_local,
+                       (q, k, v, ck, cv, cfg, pos, spec, token),
+                       (_DQ_AXES, KV_AXES, KV_AXES, CACHE_AXES["k"],
+                        CACHE_AXES["v"]), _DOUT_AXES,
+                       partial=("cache_seq",))
+    out = shard_hint(out, ("batch", None, None, None))
+    return out.reshape(b, 1, cfg.num_heads, cfg.head_dim)
+
+
+def _decode_attend_local(q, k, v, ck, cv, cfg: ModelConfig, pos: int,
+                         spec: CacheSpec, token: bool) -> torch.Tensor:
+    """[b, K_l, g, hd]: this rank's kv heads, summed over its cache slots
+    only (the softmax's max and denominator are reduced over every
+    cache_seq shard; the token's own term is added on the first)."""
+    b, hd = q.shape[0], cfg.head_dim
+    K = ck.shape[2]
+    g = cfg.num_heads // cfg.num_kv_heads
+    k0 = rules.local_offset("kv_heads")
+    qg = q[:, 0, k0 * g:(k0 + K) * g].reshape(b, K, g, hd)
+    S_l = ck.shape[1]
+    s0 = rules.local_offset("cache_seq")
+    split = rules.global_size("cache_seq", S_l) != S_l
+    idx = s0 + torch.arange(S_l, device=ck.device)
+    if token:
+        scale = 1.0 / math.sqrt(hd)
+        logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32)
+        logits = logits * scale
+        slot = (pos % spec.capacity) if spec.windowed else pos
+        # the new token replaces this slot
+        valid = _valid_slots(spec, pos, pos - 1, idx) & (idx != slot)
+        logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+        # pin the seq-sharded contraction: weights stay sharded like the
+        # cache seq dim and the PV dot reduces to a tiny [b, K, g, hd]
+        # all-reduce
+        logits = shard_hint(logits, ("batch", "kv_heads", None,
+                                     "cache_seq"))
+        logits_new = torch.einsum("bkgd,bskd->bkgs", qg, k.to(ck.dtype)
+                                  ).to(torch.float32) * scale
+        m = torch.maximum(
+            rules.local_all_reduce(logits.amax(-1, keepdim=True),
+                                   "cache_seq", "max"),
+            logits_new.amax(-1, keepdim=True))
+        p_cache = torch.exp(logits - m)
+        p_new = torch.exp(logits_new - m)
+        denom = rules.local_all_reduce(p_cache.sum(-1, keepdim=True),
+                                       "cache_seq") \
+            + p_new.sum(-1, keepdim=True)
+        w_cache = (p_cache / denom).to(cv.dtype)
+        w_cache = shard_hint(w_cache, ("batch", "kv_heads", None,
+                                       "cache_seq"))
+        w_new = (p_new / denom).to(cv.dtype)
+        out = torch.einsum("bkgs,bskd->bkgd", w_cache, cv)
+        if s0 == 0:
+            out = out + w_new * v.reshape(b, K, 1, hd).to(cv.dtype)
+        return out
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32)
+    logits = logits / math.sqrt(hd)
+    valid = _valid_slots(spec, pos, pos, idx)
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    if split:
+        m = rules.local_all_reduce(logits.amax(-1, keepdim=True),
+                                   "cache_seq", "max")
+        e = torch.exp(logits - m)
+        w = e / rules.local_all_reduce(e.sum(-1, keepdim=True), "cache_seq")
+    else:
+        w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", w.to(cv.dtype), cv)
 
 
 def attention_decode_token(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -279,31 +438,9 @@ def attention_decode_token(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    K, hd = cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // K
-    qg = q.reshape(b, K, g, hd)
     ck, cv = cache["k"], cache["v"]
-    scale = 1.0 / math.sqrt(hd)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32)
-    logits = logits * scale
-    slot = (pos % spec.capacity) if spec.windowed else pos
-    # the new token replaces this slot
-    valid = _valid_slots(spec, pos, pos - 1, ck.device) \
-        & (torch.arange(spec.capacity, device=ck.device) != slot)
-    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
-    logits_new = torch.einsum("bkgd,bskd->bkgs", qg, k.to(ck.dtype)
-                              ).to(torch.float32) * scale
-    m = torch.maximum(logits.amax(-1, keepdim=True),
-                      logits_new.amax(-1, keepdim=True))
-    p_cache = torch.exp(logits - m)
-    p_new = torch.exp(logits_new - m)
-    denom = p_cache.sum(-1, keepdim=True) + p_new.sum(-1, keepdim=True)
-    w_cache = (p_cache / denom).to(cv.dtype)
-    w_new = (p_new / denom).to(cv.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", w_cache, cv)
-    out = out + w_new * v.reshape(b, K, 1, hd).to(cv.dtype)
-    out = out.reshape(b, 1, cfg.num_heads, hd)
-    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
+    out = _decode_attend(q, k, v, ck, cv, cfg, pos, spec, token=True)
+    return (_out_proj(out, p["wo"]),
             {"k_tok": k.to(ck.dtype), "v_tok": v.to(cv.dtype)})
 
 
@@ -317,15 +454,7 @@ def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
     slot = (pos % spec.capacity) if spec.windowed else pos
     ck = write_slot(cache["k"], k, slot)
     cv = write_slot(cache["v"], v, slot)
-    K, hd = cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // K
-    qg = q.reshape(b, K, g, hd)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32)
-    logits = logits / math.sqrt(hd)
-    valid = _valid_slots(spec, pos, pos, ck.device)
-    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(cv.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", w, cv).reshape(
-        b, 1, cfg.num_heads, hd)
-    return (torch.einsum("bshk,hkd->bsd", out, p["wo"]),
-            {"k": ck, "v": cv})
+    ck = shard_hint(ck, CACHE_AXES["k"])
+    cv = shard_hint(cv, CACHE_AXES["v"])
+    out = _decode_attend(q, k, v, ck, cv, cfg, pos, spec, token=False)
+    return _out_proj(out, p["wo"]), {"k": ck, "v": cv}

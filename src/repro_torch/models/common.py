@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.rules import local_region
+
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
@@ -57,12 +59,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy. logits [..., V] fp32-cast; labels int;
-    with ``mask``, the mean over the masked positions (at least one)."""
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    with ``mask``, the mean over the masked positions (at least one).
+    Under a sharding rule context on DTensors ([b, s, V] logits) the
+    per-token losses are a local region over the batch, with the vocab
+    gathered."""
+    axes = ("batch", "seq")[:labels.dim()]
+    nll = local_region(_token_nll, (logits, labels), (axes + (None,), axes),
+                       axes)
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold

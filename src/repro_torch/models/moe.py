@@ -17,6 +17,13 @@ Tokens are processed in groups (the batch dim).  Per group:
 
 No TPU kernel backs this layer in the JAX package, so its products are
 plain ``torch.matmul``.  The init lives in ``repro_torch/params.py``.
+
+Under a sharding rule context on DTensors (the dry run) the routing and
+dispatch gather, the experts and the combine each run as a local region
+(``sharding.rules.local_region``): routing is local to a group (the
+batch dim), the experts shard over "experts" (else their hidden dim over
+"mlp", leaving partial sums), and ``shard_hint`` lays the dispatched
+and returned tokens out at the JAX package's sites.
 """
 from __future__ import annotations
 
@@ -28,6 +35,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import squared_relu
 from repro_torch.models.mlp import apply_mlp, mlp_param_axes
+from repro_torch.sharding.rules import local_region, shard_hint
+
+X_AXES = ("batch", "seq", None)
+XE_AXES = ("batch", "experts", "expert_cap", None)
 
 
 def moe_param_axes(cfg: ModelConfig) -> dict:
@@ -69,9 +80,12 @@ def _expert_ffn(p: dict, xe: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
         ff = wi.shape[-1]
         h = torch.matmul(xs, wi.view(E, d, 2 * ff)).view(E, G * C, 2, ff)
+        # [E, G*C, ...]: the group dim leads the merged dim
+        h = shard_hint(h, ("experts", "batch", None, "mlp"))
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
     else:
         h = torch.matmul(xs, wi)
+        h = shard_hint(h, ("experts", "batch", "mlp"))
         h = squared_relu(h) if kind == "squared_relu" else F.gelu(
             h, approximate="tanh")
     out = torch.matmul(h, p["wo"])  # [E, G*C, d]
@@ -109,16 +123,44 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: float = 0.0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [b, s, d] -> (out [b, s, d], aux_loss scalar)."""
+    E = cfg.num_experts
+    cf = capacity_factor or cfg.moe_capacity_factor
+    cap = max(1, int(x.shape[1] * cfg.experts_per_token * cf / E))
+    xe, slot, w, balance = local_region(
+        _dispatch_local, ({"router": p["router"]}, x, cfg, cap),
+        ({"router": (None, None)}, X_AXES),
+        [("batch", None, None, None), ("batch", None), ("batch", "seq", None),
+         ("batch",)])
+    aux = E * torch.mean(balance)
+    xe = shard_hint(xe, XE_AXES)
+    swiglu = cfg.mlp_kind == "swiglu"
+    ye = local_region(
+        _expert_ffn, ({"wi": p["wi"], "wo": p["wo"]}, xe, cfg.mlp_kind),
+        ({"wi": ("experts", None, None, "mlp") if swiglu
+          else ("experts", None, "mlp"), "wo": ("experts", "mlp", None)},
+         XE_AXES), XE_AXES, partial=("mlp",))
+    ye = shard_hint(ye, XE_AXES)
+    out = local_region(_combine_local, (ye, slot, w),
+                       (("batch", None, None, None), ("batch", None),
+                        ("batch", "seq", None)), X_AXES)
+    out = shard_hint(out, ("batch", "seq", None))
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], x, cfg.mlp_kind)
+    return out, aux
+
+
+def _dispatch_local(p: dict, x: torch.Tensor, cfg: ModelConfig, cap: int):
+    """Routing and the dispatch gather of a block of groups: (xe [b, E,
+    cap, d], slot [b, s k], combine weights [b, s, k], each group's
+    load-balance term [b])."""
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    cf = capacity_factor or cfg.moe_capacity_factor
-    cap = max(1, int(s * k * cf / E))
     probs, topw, tope = route(p, x, cfg)
 
     # aux load-balance loss (switch-style)
     dispatch_frac = F.one_hot(tope, E).to(torch.float32).mean(dim=(1, 2))
     prob_frac = probs.mean(dim=1)  # [b, E]
-    aux = E * torch.mean(torch.sum(dispatch_frac * prob_frac, dim=-1))
+    balance = torch.sum(dispatch_frac * prob_frac, dim=-1)
 
     tables, _ = _route_tables(tope, topw, s, E, cap, x.dtype)
     # per-(token, choice) slot in the dispatched tensor, for the combine
@@ -132,13 +174,17 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     bidx = torch.arange(b, device=x.device)[:, None]
     xpad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
     xe = xpad[bidx, tables.reshape(b, E * cap)].view(b, E, cap, d)
-    ye = _expert_ffn(p, xe, cfg.mlp_kind)
+    w = torch.where(myk < cap, topw.reshape(b, s * k), 0.0).view(b, s, k)
+    return xe, slot, w, balance
 
+
+def _combine_local(ye: torch.Tensor, slot: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """out[t] = sum_k w_tk * ye[slot(t, k)], a batched gather."""
+    b, E, cap, d = ye.shape
+    s, k = w.shape[1], w.shape[2]
+    bidx = torch.arange(b, device=ye.device)[:, None]
     ye_flat = torch.cat([ye.reshape(b, E * cap, d), ye.new_zeros(b, 1, d)],
                         dim=1)  # sentinel zero row
     picked = ye_flat[bidx, slot].view(b, s, k, d)
-    w = torch.where(myk < cap, topw.reshape(b, s * k), 0.0).view(b, s, k)
-    out = torch.einsum("bskd,bsk->bsd", picked, w.to(picked.dtype))
-    if "shared" in p:
-        out = out + apply_mlp(p["shared"], x, cfg.mlp_kind)
-    return out, aux
+    return torch.einsum("bskd,bsk->bsd", picked, w.to(picked.dtype))

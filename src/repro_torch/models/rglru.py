@@ -12,6 +12,9 @@ The full-sequence path runs the recurrence as a log-depth doubling scan
 (the JAX package uses ``jax.lax.associative_scan``: the same products,
 combined in another order, so the two agree within fp32 rounding);
 decode is a single recurrence step.  No TPU kernel backs this block.
+Under a sharding rule context on DTensors the products run as local
+regions (``sharding.rules.einsum``) with the width sharded over
+"rglru_width"; the conv and the scan are elementwise along it.
 """
 from __future__ import annotations
 
@@ -23,6 +26,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import softplus
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import shard_hint
+
+X_AXES = ("batch", "seq", None)
+U_AXES = ("batch", "seq", "rglru_width")
+W_AXES = (None, "rglru_width")  # an input projection, FSDP dim gathered
 
 _C = 8.0
 
@@ -57,10 +66,10 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def _gates(p: dict, u: torch.Tensor):
-    r = torch.sigmoid(torch.einsum("bsw,wk->bsk", u, p["w_a"])
-                      .to(torch.float32))
-    i = torch.sigmoid(torch.einsum("bsw,wk->bsk", u, p["w_i"])
-                      .to(torch.float32))
+    r = torch.sigmoid(rules.einsum("bsw,wk->bsk", u, p["w_a"], X_AXES,
+                                   W_AXES, U_AXES).to(torch.float32))
+    i = torch.sigmoid(rules.einsum("bsw,wk->bsk", u, p["w_i"], X_AXES,
+                                   W_AXES, U_AXES).to(torch.float32))
     log_a = -_C * softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (
@@ -77,7 +86,8 @@ def apply_rglru_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      with_cache: bool
                      ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x [b, s, d]; the recurrence over the whole sequence."""
-    u = torch.einsum("bsd,dw->bsw", x, p["w_x"])
+    u = rules.einsum("bsd,dw->bsw", x, p["w_x"], X_AXES, W_AXES, U_AXES)
+    u = shard_hint(u, ("batch", "seq", "rglru_width"))
     # causal depthwise conv, width 4
     w = p["conv"].shape[0]
     prev = u.new_zeros((u.shape[0], w - 1, u.shape[-1]))
@@ -85,8 +95,10 @@ def apply_rglru_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
     u = sum(full[:, i:i + x.shape[1]] * p["conv"][i] for i in range(w))
     a, gated_in = _gates(p, u)
     h = linear_scan(a, gated_in)  # [b, s, w] fp32
-    gate = _gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]))
-    out = torch.einsum("bsw,wd->bsd", h.to(x.dtype) * gate, p["w_out"])
+    gate = _gelu(rules.einsum("bsd,dw->bsw", x, p["w_gate"], X_AXES, W_AXES,
+                              U_AXES))
+    out = rules.einsum("bsw,wd->bsd", h.to(x.dtype) * gate, p["w_out"],
+                       U_AXES, ("rglru_width", None), X_AXES)
     if with_cache:
         return out, {"h": h[:, -1], "conv": full[:, -(w - 1):]}
     return out, None
@@ -95,11 +107,16 @@ def apply_rglru_full(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def apply_rglru_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        cache: dict) -> Tuple[torch.Tensor, dict]:
     """x [b, 1, d] single-step recurrence."""
-    u = torch.einsum("bsd,dw->bsw", x, p["w_x"])  # [b, 1, w]
+    u = rules.einsum("bsd,dw->bsw", x, p["w_x"], X_AXES, W_AXES,
+                     U_AXES)  # [b, 1, w]
     hist = torch.cat([cache["conv"], u], dim=1)  # [b, 4, w]
-    u = torch.einsum("bwk,wk->bk", hist, p["conv"])[:, None]  # [b, 1, w]
+    u = rules.einsum("bwk,wk->bk", hist, p["conv"], U_AXES, W_AXES,
+                     ("batch", "rglru_width"))[:, None]  # [b, 1, w]
     a, gated_in = _gates(p, u)  # [b, 1, w]
     h = a[:, 0] * cache["h"] + gated_in[:, 0]  # [b, w]
-    gate = _gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]))[:, 0]
-    out = torch.einsum("bw,wd->bd", h.to(x.dtype) * gate, p["w_out"])
+    gate = _gelu(rules.einsum("bsd,dw->bsw", x, p["w_gate"], X_AXES, W_AXES,
+                              U_AXES))[:, 0]
+    out = rules.einsum("bw,wd->bd", h.to(x.dtype) * gate, p["w_out"],
+                       ("batch", "rglru_width"), ("rglru_width", None),
+                       ("batch", None))
     return out[:, None], {"h": h, "conv": hist[:, 1:]}

@@ -15,6 +15,11 @@ Entry points:
   decode_step(params, cfg, token, pos, cache)     -> (logits, cache)
   init_cache(cfg, batch, seq_len, dtype, device)
   snapshot_states(cache, cfg) / cache_from_snapshot(states, cfg, device)
+
+Under a sharding rule context on DTensors (the dry run) the embedding
+lookups and the head run as local regions (``sharding.rules``), and
+``shard_hint`` lays the residual stream and the logits out at the JAX
+package's four sites.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rms_norm
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import local_region, shard_hint
 
 MAX_LEARNED_POS = 32_768  # hubert prefill_32k upper bound
 
@@ -198,7 +205,9 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             out, new_cache = ssm_mod.apply_ssm_full(
                 p["ssm"], h, cfg, with_cache=(mode == "prefill"))
-        return x + out, new_cache, aux  # mamba2 blocks have no MLP
+        x = x + out  # mamba2 blocks have no MLP
+        x = shard_hint(x, ("batch", "seq", "embed_act"))
+        return x, new_cache, aux
     else:
         raise ValueError(kind)
 
@@ -215,7 +224,9 @@ def _apply_layer(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             out2, aux = moe_mod.apply_moe(p["moe"], h2, cfg)
     else:
         out2 = mlp_mod.apply_mlp(p["mlp"], h2, cfg.mlp_kind)
-    return x + out2, new_cache, aux
+    x = x + out2
+    x = shard_hint(x, ("batch", "seq", "embed_act"))
+    return x, new_cache, aux
 
 
 def _full_layer(kind: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -273,18 +284,43 @@ def embed_inputs(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                             params["mask_embed"].to(e.dtype), e)
         parts.append(e)
     if tokens is not None:
-        parts.append(params["embed"][tokens])
+        parts.append(lookup(params["embed"], tokens, "vocab"))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     if "pos_embed" in params:
-        x = x + params["pos_embed"][positions.long()]
-    return x
+        x = x + lookup(params["pos_embed"], positions, None)
+    return shard_hint(x, ("batch", "seq", "embed_act"))
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor,
+           axis: Optional[str]) -> torch.Tensor:
+    """``table[ids]``: rows of a [n, d] table by ids [b] or [b, s].  In a
+    region whose table rows shard over logical ``axis`` (the vocab), each
+    rank looks up the ids its rows hold and leaves zeros elsewhere: a
+    partial sum over those shards."""
+    ids_axes = ("batch", "seq")[:ids.dim()]
+    return local_region(_lookup_local, (table, ids), ((axis, None), ids_axes),
+                        ids_axes + (None,), partial=(axis,) if axis else ())
+
+
+def _lookup_local(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    ids = ids.long()
+    n = table.shape[0]
+    if n == rules.global_size("vocab", n):
+        return table[ids]
+    local = ids - rules.local_offset("vocab")
+    hit = (local >= 0) & (local < n)
+    rows = table[torch.where(hit, local, 0)]
+    return torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
 
 
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x [b, s, d] -> logits [b, s, V] (tied or untied head)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, w)
+    logits = rules.einsum("bsd,dv->bsv", x, w, ("batch", "seq", None),
+                          (None, "vocab"), ("batch", "seq", "vocab"))
+    return shard_hint(logits, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -335,9 +371,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: int,
     b = token.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32,
                            device=token.device)
-    x = params["embed"][token][:, None, :]
+    x = lookup(params["embed"], token, "vocab")[:, None, :]
     if "pos_embed" in params:
-        x = x + params["pos_embed"][positions.long()]
+        x = x + lookup(params["pos_embed"], positions, None)
     x, new_cache, _ = _run_stack(params, cfg, x, mode="decode", cache=cache,
                                  pos=pos, positions=positions)
     return lm_logits(params, cfg, x)[:, 0], new_cache

@@ -1,1 +1,3 @@
-"""Analytic model FLOPs for the port's MFU figures."""
+"""The port's roofline: analytic FLOPs, the dry run's trace recorder
+(``trace``), the roofline terms (``analysis``) and their table
+(``report``)."""

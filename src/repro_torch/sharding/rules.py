@@ -15,19 +15,29 @@ a 16-way model axis instead of producing an invalid sharding.
 A resolved spec is a tuple with one entry per tensor dim: ``None``, a
 mesh axis name or a tuple of names (JAX's ``PartitionSpec``).
 ``placements`` turns it into DTensor placements, one ``Shard(i)`` or
-``Replicate()`` per mesh dim.  The resolver reads only the mesh's axis
+``Replicate()`` per mesh dim.
+
+``local_region`` runs a function on this rank's local shards
+(``local_map``), its inputs and outputs laid out by their logical axes:
+the model code's counterpart of what GSPMD propagates between the JAX
+package's hints.  Inside it, ``local_offset`` and ``local_all_reduce``
+see the shards of the region's logical axes.  The resolver reads only the mesh's axis
 sizes: a ``DeviceMesh`` (``mesh_dim_names`` with its ``shape``), or any
 object whose ``.shape`` is already a mapping from axis name to size.
 """
 from __future__ import annotations
 
 import contextlib
-import threading
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+import math
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.distributed.tensor.placement_types import Placement
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 AxisCand = Union[str, Tuple[str, ...]]
 Spec = Tuple[Optional[AxisCand], ...]
@@ -69,10 +79,17 @@ CONTEXT_PARALLEL_OVERLAY: Dict[str, Sequence[AxisCand]] = {
 }
 
 
-class _State(threading.local):
+class _State:
+    """The active rule context.  Process-wide, not per thread (the JAX
+    package keeps it per thread): the autograd engine runs the backward
+    of CUDA tensors, and so a checkpointed layer's recompute, on a device
+    thread of its own, which must see the context of the step."""
+
     def __init__(self) -> None:
         self.mesh = None
         self.rules: Dict[str, Sequence[AxisCand]] = {}
+        # inside a local region: logical axis -> (global size, mesh dims)
+        self.region: Optional[Dict[str, Tuple[int, Tuple[int, ...]]]] = None
 
 
 _STATE = _State()
@@ -199,3 +216,167 @@ def shard_hint(x: torch.Tensor, logical_axes: Sequence[Optional[str]]):
         return x
     return x.redistribute(_STATE.mesh,
                           placements(logical_axes, x.shape, _STATE.mesh))
+
+
+# ---------------------------------------------------------------------------
+# Local regions
+# ---------------------------------------------------------------------------
+
+Axes = Optional[Sequence[Optional[str]]]
+
+
+def _sharded_dims(pl: Sequence[Placement], dim: int) -> Tuple[int, ...]:
+    return tuple(m for m, p in enumerate(pl)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def local_region(fn: Callable, args: Sequence[Any], in_axes: Sequence[Any],
+                 out_axes: Any, *, partial: Sequence[str] = ()):
+    """``fn(*args)`` on this rank's local shards when a rule context is
+    active and a tensor in ``args`` is a ``DTensor``; plain
+    ``fn(*args)`` otherwise.
+
+    ``in_axes[i]`` mirrors ``args[i]``: the logical axes of a tensor, a
+    dict or list of them for a dict or list of tensors, or ``None`` for
+    an argument passed as it is.  Each tensor is laid out by its axes
+    first (a plain tensor counts as replicated), so a weight whose
+    FSDP dim is named ``None`` here is all-gathered over the data axes.
+    An axis name resolves once per region: two inputs that name it must
+    agree in size and layout.
+
+    ``out_axes`` are the logical axes of ``fn``'s output, or a list of
+    them for a tuple of outputs.  An output dim is laid out as the input
+    dim of the same axis name; a name no input carries is replicated.
+    ``partial`` names axes that ``fn`` contracts: each mesh dim that
+    shards one of them holds a partial sum of the outputs.
+    A gradient flows back as a partial sum on each mesh dim where its
+    input was replicated but the region was split."""
+    mesh = _STATE.mesh
+    if mesh is None:
+        return fn(*args)
+    flat, spec = tree_flatten(list(args))
+    if not any(isinstance(t, DTensor) for t in flat):
+        return fn(*args)
+    axes_flat = _flat_axes(args, in_axes)
+    resolved: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
+    in_pl: List[Optional[Tuple[Placement, ...]]] = []
+    dflat = []
+    for t, axes in zip(flat, axes_flat):
+        if axes is None or not isinstance(t, torch.Tensor):
+            in_pl.append(None)
+            dflat.append(t)
+            continue
+        pl = placements(axes, t.shape, mesh)
+        for i, name in enumerate(axes):
+            if name is None:
+                continue
+            got = (t.shape[i], _sharded_dims(pl, i))
+            if resolved.setdefault(name, got) != got:
+                raise ValueError(
+                    f"local_region: axis {name!r} resolves to "
+                    f"{resolved[name]} and to {got}")
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        in_pl.append(pl)
+        dflat.append(t)
+
+    def out_pl(axes) -> List[Placement]:
+        pl: List[Placement] = [Replicate()] * mesh.ndim
+        for i, name in enumerate(axes):
+            for m in resolved.get(name, (0, ()))[1]:
+                pl[m] = Shard(i)
+        for name in partial:
+            for m in resolved.get(name, (0, ()))[1]:
+                if isinstance(pl[m], Shard):
+                    raise ValueError(f"local_region: mesh dim {m} both "
+                                     f"shards and reduces {name!r}")
+                pl[m] = Partial()
+        return pl  # a list: local_map reads a tuple as one per output
+
+    multi = isinstance(out_axes, list)
+    outs = tuple(out_pl(a) for a in out_axes) if multi else out_pl(out_axes)
+    split = {m for pls in ([outs] if not multi else list(outs)) + in_pl
+             if pls is not None for m, p in enumerate(pls)
+             if not isinstance(p, Replicate)}
+    grad_pl = [None if pl is None else tuple(
+        Partial() if isinstance(p, Replicate) and m in split else p
+        for m, p in enumerate(pl)) for pl in in_pl]
+
+    def flat_fn(*local):
+        prev, _STATE.region = _STATE.region, resolved
+        try:
+            return fn(*tree_unflatten(list(local), spec))
+        finally:
+            _STATE.region = prev
+
+    return local_map(flat_fn, out_placements=outs,
+                     in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*dflat)
+
+
+def _flat_axes(args, in_axes) -> List[Axes]:
+    """``in_axes`` flattened as ``tree_flatten`` flattens ``args``."""
+    out: List[Axes] = []
+    in_axes = list(in_axes) + [None] * (len(args) - len(in_axes))
+    for a, axes in zip(args, in_axes):
+        if isinstance(a, dict):
+            out += _flat_axes(list(a.values()),
+                              [axes.get(k) if axes else None for k in a])
+        elif isinstance(a, (list, tuple)):
+            out += _flat_axes(a, axes if axes is not None else [None] * len(a))
+        else:
+            out.append(axes if isinstance(a, torch.Tensor) else None)
+    return out
+
+
+def local_offset(name: str) -> int:
+    """Inside a local region: the global index of the first element of
+    this rank's shard along logical axis ``name`` (0 when it is not
+    sharded, or outside a region)."""
+    region = _STATE.region
+    if not region or name not in region:
+        return 0
+    size, mdims = region[name]
+    mesh = _STATE.mesh
+    coord = mesh.get_coordinate()
+    idx = 0
+    for m in mdims:
+        idx = idx * mesh.size(m) + coord[m]
+    return idx * (size // math.prod(mesh.size(m) for m in mdims))
+
+
+def local_all_reduce(t: torch.Tensor, name: str,
+                     op: str = "sum") -> torch.Tensor:
+    """Inside a local region: ``t`` reduced by ``op`` over the ranks that
+    hold the other shards of logical axis ``name`` (``t`` itself when the
+    axis is not sharded, or outside a region).  Not differentiable."""
+    region = _STATE.region
+    if not region or name not in region:
+        return t
+    for m in region[name][1]:
+        t = funcol.all_reduce(t, op, (_STATE.mesh, m))
+    return t
+
+
+def global_size(name: str, local: int) -> int:
+    """Inside a local region: the global size of logical axis ``name``
+    (``local`` when the region does not carry it, or outside one)."""
+    region = _STATE.region
+    return region[name][0] if region and name in region else local
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor, a_axes: Axes,
+           b_axes: Axes, out_axes: Axes) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` as a local region: each operand laid
+    out by its logical axes, the output by ``out_axes``, and a partial
+    sum on the mesh dims that shard a contracted axis (one the operands
+    name and the output does not)."""
+    if _STATE.mesh is None:
+        return torch.einsum(eq, a, b)
+    contracted = ({n for n in (*a_axes, *b_axes) if n is not None}
+                  - set(out_axes))
+    return local_region(lambda x, y: torch.einsum(eq, x, y), (a, b),
+                        (a_axes, b_axes), tuple(out_axes),
+                        partial=tuple(sorted(contracted)))

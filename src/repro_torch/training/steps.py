@@ -18,6 +18,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import cross_entropy
 from repro_torch.params import init_params
+from repro_torch.sharding.rules import local_region
 from repro_torch.training.optimizer import AdamW, AdamWState, global_norm
 from repro_torch.tree import leaves, unflatten
 
@@ -84,6 +85,14 @@ def value_and_grad(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
+def _micro_batch(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Row block i of n of ``v`` (a local region over the batch dim)."""
+    axes = ("batch",) + (None,) * (v.dim() - 1)
+    return local_region(
+        lambda t: t.reshape((n, -1) + tuple(t.shape[1:]))[i], (v,), (axes,),
+        axes)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
                     accum_steps: int = 1, remat: bool = True):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -92,10 +101,11 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
             grads, metrics = value_and_grad(state.params, cfg, batch, remat)
         else:
             # micro-batches are contiguous row blocks, as the JAX
-            # package's reshape((accum, -1) + ...) cuts them
+            # package's reshape((accum, -1) + ...) cuts them (of each
+            # rank's rows, under a sharding rule context on DTensors)
             grads, ms = None, []
             for i in range(accum_steps):
-                mb = {k: v.reshape((accum_steps, -1) + tuple(v.shape[1:]))[i]
+                mb = {k: _micro_batch(v, accum_steps, i)
                       for k, v in batch.items()}
                 g, m = value_and_grad(state.params, cfg, mb, remat)
                 g = [x.to(torch.float32) for x in g]

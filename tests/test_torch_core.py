@@ -150,3 +150,64 @@ def test_allocator_and_workload_match():
     np.testing.assert_array_equal(p1, p2)
     for x, y in zip(q1, q2):
         np.testing.assert_array_equal(x, y)
+
+
+# -- the layout baselines and the tensor quantizer ----------------------------
+
+def _seeded_q(seed):
+    """A seeded uint8 chunk [T, L, H, D] with power-of-two H and D."""
+    rng = np.random.default_rng(seed)
+    T, L = int(rng.integers(1, 12)), int(rng.integers(3, 10))
+    H, D = 2 ** int(rng.integers(0, 4)), 2 ** int(rng.integers(2, 6))
+    return rng.integers(0, 256, (T, L, H, D), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("name", ["layer_slice_frames", "head_slice_frames"])
+def test_slicing_baselines_byte_equal_jax(name, seed):
+    from repro.core import layout as jax_layout
+    from repro_torch.core import layout
+    q = _seeded_q(seed)
+    got, want = getattr(layout, name)(q), getattr(jax_layout, name)(q)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_token_stitched_single_frame_byte_equal_jax(seed):
+    from repro.core import layout as jax_layout
+    from repro_torch.core import layout
+    q = _seeded_q(seed)
+    T, L, H, D = q.shape
+    rng = np.random.default_rng(100 + seed)
+    cands = layout.intra_candidates(H, D)
+    lay = cands[int(rng.integers(len(cands)))]
+    chunk = q[:, :3]
+    got = layout.token_stitched_single_frame(chunk, lay)
+    want = jax_layout.token_stitched_single_frame(
+        chunk, jax_layout.IntraLayout(lay.H, lay.D, lay.hr, lay.dr))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_quantize_torch_bit_equal_jax(seed):
+    import jax.numpy as jnp
+    from repro.core import quantization as jax_quant
+    from repro_torch.core import quantization as quant
+    rng = np.random.default_rng(seed)
+    shape = tuple(int(n) for n in rng.integers(1, 9, 4))
+    kv = (rng.standard_normal(shape) * rng.uniform(0.01, 10)).astype(
+        np.float32)
+    jq, js = jax_quant.quantize_jnp(jnp.asarray(kv))
+    q, s = quant.quantize_torch(kv, device="cpu")
+    assert q.dtype == torch.uint8 and q.device.type == "cpu"
+    assert q.numpy().tobytes() == np.asarray(jq).tobytes()
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=0, atol=0)
+    # given scales are used as they are; dequantize inverts the integers
+    q2, s2 = quant.quantize_torch(kv, scales=s, device="cpu")
+    jq2, _ = jax_quant.quantize_jnp(jnp.asarray(kv), jnp.asarray(js))
+    assert q2.numpy().tobytes() == np.asarray(jq2).tobytes()
+    deq = quant.dequantize_torch(q, s, device="cpu")
+    jdeq = jax_quant.dequantize_jnp(jq, js)
+    assert deq.numpy().tobytes() == np.asarray(jdeq).tobytes()

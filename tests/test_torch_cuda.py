@@ -431,6 +431,43 @@ def test_ssd_scan_kernel_rejects_bad_arguments(cuda):
                          .contiguous(), Cm, chunk=32)
 
 
+def test_ssd_scan_forward_after_a_shorter_backward(cuda):
+    """The backward sets the C.B^T kernel's shared-memory limit to what its
+    pieces need; a forward of longer chunks afterwards still launches and
+    matches the plain version."""
+    short = _scan_inputs(2, 32, 4, 32, 1, 16, 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    ssd_ops.ssd_scan_bwd(*short, torch.randn(2, 32, 4, 32, device=cuda,
+                                             generator=g),
+                         torch.randn(2, 4, 32, 16, device=cuda, generator=g),
+                         chunk=64)
+    xdt, a_log, Bm, Cm = _scan_inputs(2, 128, 4, 32, 1, 16, 1, cuda)
+    y, st = ssd_ops.ssd_scan(xdt, a_log, Bm, Cm, chunk=64)
+    want_y, want_st = ssd_scan_ref(*(t.cpu() for t in (xdt, a_log, Bm, Cm)),
+                                   chunk=64)
+    for got, want in ((y, want_y), (st, want_st)):
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 2e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("s", [128, 100])
+def test_ssd_scan_ops_pass_opcheck_on_the_card(cuda, s):
+    """The two custom ops through ``torch.library.opcheck`` on CUDA
+    inputs: the fake implementation against the kernels' outputs (shapes,
+    dtypes, strides of a padded length), the schema, and dispatch; each
+    call launches its kernel."""
+    xdt, a_log, Bm, Cm = _scan_inputs(2, s, 4, 32, 1, 16, 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(2, s, 4, 32, device=cuda, generator=g)
+    dstate = torch.randn(2, 4, 32, 16, device=cuda, generator=g)
+    ssd_ops.launches = ssd_ops.bwd_launches = 0
+    torch.library.opcheck(torch.ops.repro_torch.ssd_scan_fwd.default,
+                          (xdt, a_log, Bm, Cm, 64))
+    torch.library.opcheck(torch.ops.repro_torch.ssd_scan_bwd.default,
+                          (xdt, a_log, Bm, Cm, dy, dstate, 64))
+    assert ssd_ops.launches > 0 and ssd_ops.bwd_launches > 0
+
+
 def test_mamba2_on_the_card_matches_the_cpu(cuda):
     cfg = reduce_config(get_config("mamba2-2.7b"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
