@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -70,6 +71,9 @@ class KVCodec:
         self.H, self.D = H, D
         self.layout = layout or IntraLayout(H, D, H, 1)  # identity-ish
         self.options = options
+        # host seconds in the rANS streams' reads, summed over every
+        # ``iter_decode_frames`` of this codec
+        self.rans_s = 0.0
 
     # -- layout search (paper Fig. 14; offline, input-agnostic) ---------
     def search_layout(self, sample_q: np.ndarray,
@@ -186,9 +190,12 @@ class KVCodec:
         prev = None
         for f in range(info.geom.n_frames):
             zres_f = np.empty((fh, fw, 3), np.uint8)
+            t0 = time.monotonic()  # repro-lint: allow(no-wall-clock)
             for c in range(3):
                 which = 1 if modes[f, c] == MODE_TEMPORAL else 0
                 zres_f[:, :, c] = decoders[c][which].read(fsz).reshape(fh, fw)
+            # repro-lint: allow(no-wall-clock)
+            self.rans_s += time.monotonic() - t0
             frame = predict_decode_frame(zres_f, modes[f], prev)
             prev = frame
             toks, qt = unpack_single_frame(frame, info.layout, info.geom, f)

@@ -86,7 +86,7 @@ from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import lm_logits
 from repro_torch.paged.cache import PagedKVCache
 from repro_torch.params import layer_params
-from repro_torch.serving import paged_model
+from repro_torch.serving import paged_model, tracing
 from repro_torch.sharding import rules
 
 # Shadow rids for mesh-sharded fetches live far above any real rid so
@@ -156,7 +156,10 @@ class LiveEngine:
                  on_token: Optional[Callable[[Request, int, float],
                                              None]] = None,
                  mesh=None, mesh_shards: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 # where the engine's spans go (None: tracing.TRACER,
+                 # the process's)
+                 tracer: Optional[tracing.Tracer] = None):
         if not isinstance(store, (KVStore, StorageCluster)):
             raise TypeError(
                 f"LiveEngine store {type(store).__module__}."
@@ -220,6 +223,7 @@ class LiveEngine:
         self.fetch_mode = fetch_mode
         self.external_dispatch = external_dispatch
         self.stats = EngineStats()
+        self.tracer = tracing.TRACER if tracer is None else tracer
         self.prompts: Dict[int, np.ndarray] = {}
         self.outputs: Dict[int, List[int]] = {}
         self.finished: List[Request] = []
@@ -484,14 +488,15 @@ class LiveEngine:
     def _run_fetch_wall(self, req: Request, plan: FetchPlan) -> None:
         """Fetch synchronously, stamping real timestamps (no network
         model)."""
-        req.fetch_started = self.now()
-        for pc in plan.chunks:
-            pc.resolution = self.resolution
-            pc.t_transmit_start = pc.t_transmit_done = self.now()
-            self._restore_chunk(req, plan, pc)
-            pc.t_decode_done = pc.t_restored = self.now()
-        req.layers_ready = plan.layers_ready()
-        self.sched.notify_fetch_done(req, self.now())
+        with self.tracer.span("fetch", req.rid):
+            req.fetch_started = self.now()
+            for pc in plan.chunks:
+                pc.resolution = self.resolution
+                pc.t_transmit_start = pc.t_transmit_done = self.now()
+                self._restore_chunk(req, plan, pc)
+                pc.t_decode_done = pc.t_restored = self.now()
+            req.layers_ready = plan.layers_ready()
+            self.sched.notify_fetch_done(req, self.now())
 
     # -- chunk-wise restoration (real codec + paged scatter) -----------------
     def _restore_chunk(self, req: Request, plan: FetchPlan,
@@ -517,15 +522,18 @@ class LiveEngine:
         q = staged.numpy()
         token_ids = np.empty(n, np.int64)
         off = 0
-        for toks, qt in codec.iter_decode_frames(blob):
-            buf = qt.nbytes * 2  # residual + reference frame
-            self.stats.restore_buffer_high_water = max(
-                self.stats.restore_buffer_high_water, buf)
-            k = len(toks)
-            q[:, off:off + k] = qt.swapaxes(0, 1)
-            token_ids[off:off + k] = toks + ref.token_start
-            off += k
-            self.stats.restored_tokens += k
+        rans_before = codec.rans_s
+        with self.tracer.span("codec decode", req.rid) as span:
+            for toks, qt in codec.iter_decode_frames(blob):
+                buf = qt.nbytes * 2  # residual + reference frame
+                self.stats.restore_buffer_high_water = max(
+                    self.stats.restore_buffer_high_water, buf)
+                k = len(toks)
+                q[:, off:off + k] = qt.swapaxes(0, 1)
+                token_ids[off:off + k] = toks + ref.token_start
+                off += k
+                self.stats.restored_tokens += k
+            span.counts["rans_s"] = codec.rans_s - rans_before
         if off != n:
             raise ValueError(f"chunk {ref.chunk_id}: decoded {off} tokens, "
                              f"its manifest entry holds {n}")
@@ -534,35 +542,41 @@ class LiveEngine:
             raise ValueError(f"chunk {ref.chunk_id}: layers {ref.layers} "
                              f"are not one contiguous group")
         scales = self._fetch_scales[req.rid][ref.kind][l0:l0 + G]
-        self.cache.restore_chunk(ref.kind, req.rid, ref.layers, token_ids,
-                                 staged, scales)
+        with self.tracer.span("restore", req.rid, tokens=n):
+            self.cache.restore_chunk(ref.kind, req.rid, ref.layers,
+                                     token_ids, staged, scales)
 
     # -- prefill -------------------------------------------------------------
     def _prefill(self, req: Request) -> None:
         tokens = self.prompts[req.rid]
-        total = len(tokens) + req.max_new_tokens
-        if req.rid not in self.cache.seqs:
-            self.cache.add_seq(req.rid, total)
-        else:
-            self.cache.ensure_capacity(req.rid, total)
-        if req.needs_fetch:
-            logits = self._suffix_prefill(req, tokens)
-        else:
-            logits, kvs = paged_model.prefill_collect_kv(
-                self.params, self.cfg,
-                torch.as_tensor(tokens[None], dtype=torch.long,
-                                device=self.device))
-            for layer, (k, v) in enumerate(kvs):
-                self.cache.write_prefill(layer, req.rid, k[0], v[0])
-            logits = logits[0]
-            if self.virtual:
-                self._clock += self.cost.prefill_time(len(tokens))
-        info = self.cache.seqs[req.rid]
-        info.context_len = len(tokens)
-        nxt = int(torch.argmax(logits))
-        self.outputs[req.rid].append(nxt)
-        req.tokens_out = 1
-        req.t_first_token = self.now()
+        kind, n = (("suffix prefill", len(tokens) - req.reuse_tokens)
+                   if req.needs_fetch else ("plain prefill", len(tokens)))
+        with self.tracer.span(kind, req.rid, tokens=n) as span:
+            total = len(tokens) + req.max_new_tokens
+            if req.rid not in self.cache.seqs:
+                self.cache.add_seq(req.rid, total)
+            else:
+                self.cache.ensure_capacity(req.rid, total)
+            if req.needs_fetch:
+                logits = self._suffix_prefill(req, tokens)
+            else:
+                logits, kvs = paged_model.prefill_collect_kv(
+                    self.params, self.cfg,
+                    torch.as_tensor(tokens[None], dtype=torch.long,
+                                    device=self.device))
+                for layer, (k, v) in enumerate(kvs):
+                    self.cache.write_prefill(layer, req.rid, k[0], v[0])
+                logits = logits[0]
+                if self.virtual:
+                    self._clock += self.cost.prefill_time(len(tokens))
+            info = self.cache.seqs[req.rid]
+            info.context_len = len(tokens)
+            nxt = int(torch.argmax(logits))
+            self.outputs[req.rid].append(nxt)
+            req.tokens_out = 1
+            req.t_first_token = self.now()
+            if not self.virtual:
+                span.t1 = req.t_first_token  # the span ends at the stamp
         req.token_times.append(req.t_first_token)
         if self.on_token is not None:
             self.on_token(req, nxt, req.t_first_token)
@@ -662,9 +676,11 @@ class LiveEngine:
             positions = torch.as_tensor(
                 [len(self.prompts[r.rid]) + r.tokens_out - 1
                  for r in active], dtype=torch.int32)
-            logits = paged_model.decode_paged(
-                self.params, self.cfg, toks, positions, self.cache, seq_ids)
-            nxt = torch.argmax(logits, dim=-1).tolist()
+            with self.tracer.span("decode step"):
+                logits = paged_model.decode_paged(
+                    self.params, self.cfg, toks, positions, self.cache,
+                    seq_ids)
+                nxt = torch.argmax(logits, dim=-1).tolist()
             if self.virtual:
                 ctx = float(np.mean([len(self.prompts[r.rid]) + r.tokens_out
                                      for r in active]))

@@ -32,7 +32,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.paged import cache as paged_cache  # noqa: E402
 from repro_torch.core.chunks import prefix_key  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
-from repro_torch.serving import paged_model  # noqa: E402
+from repro_torch.serving import paged_model, tracing  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
 from repro_torch.training.optimizer import (  # noqa: E402
     AdamW, constant_schedule)
@@ -307,6 +307,49 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         assert kv_ops.launches - before == (0 if dev == "cpu" else chunks)
         outs.append(eng.outputs[r.rid])
     assert outs[0] == outs[1]
+
+
+def test_engine_spans_are_ranges_of_a_trace_of_the_card(cuda):
+    """Inside a profiler session of the card the engine's spans are
+    ``record_function`` ranges beside the device's records: one
+    ``restore`` range, on the host and on the card, and one ``kv_restore``
+    kernel per fetched chunk."""
+    cfg = reduce_config(get_config("lwm-7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
+    params = tree_map(lambda t: t.to(cuda), params)
+
+    def serve(tr):
+        store = KVStore()
+        store.register_prefix(prefix, kv_k, kv_v, tokens_per_chunk=16,
+                              resolutions=("240p",))
+        eng = LiveEngine(params, cfg, store, device=cuda, tracer=tr)
+        eng.submit(np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                        8)]),
+                   reuse_prefix=prefix_key(prefix), reuse_tokens=48,
+                   max_new_tokens=4)
+        eng.submit(rng.integers(0, cfg.vocab_size, 24), max_new_tokens=4)
+        eng.run()
+        return len(store.lookup(prefix_key(prefix)).refs)
+
+    serve(tracing.Tracer())  # builds the kernels outside the session
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        chunks = serve(tracing.Tracer())
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = {e.name for e in events}
+    assert {"fetch", "codec decode", "restore", "suffix prefill",
+            "plain prefill", "decode step"} <= names
+    host, card = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for dev in (host, card):  # the range again on the card's timeline
+        assert len([e for e in events if e.name == "restore"
+                    and e.device_type == dev]) == chunks
+    assert len([e for e in events if e.device_type == card
+                and "kv_restore" in e.name]) == chunks
 
 
 
