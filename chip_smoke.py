@@ -11,7 +11,8 @@ JAX or of the JAX package.  Phases:
    the checkout (one ``nvcc`` per source, all at once), timed; then, in a
    child process that profiles once (a later profiler session in a
    process can lose every device record), the CUDA kernels of one call
-   of each op at the paths' shapes, which must be what its source
+   of each op at the paths' shapes (``rans_decode`` at the six streams
+   of a chunk of lwm-7b's 3-layer groups), which must be what its source
    launches;
 2. set-up: lwm-7b at full width (32 layers, d 4096, 32 heads, hd 128,
    ff 11008, vocab 32000) with random fp32 weights from a seeded
@@ -44,20 +45,29 @@ JAX or of the JAX package.  Phases:
    by the chained one-frame op; the decode timed at the path's stacks and
    the big one beside the chained one-frame decode in one graph, the
    plain version, its bound and (context only) a uint8 ``torch.cumsum``;
+   then ``rans_decode`` on the rANS streams of the path's first fetched
+   chunk, of a chunk of the remainder group and of a yi-9b-shaped chunk
+   (1,024 tokens x 3 layers x 4 kv heads x 128 of the donor's K then V,
+   encoded at 240p): byte-equal to the host's ``entropy.decode`` and to
+   the plain version, one launch timed in a CUDA graph beside its byte
+   bound (the chain of rounds, not bytes, sets its time), the whole call
+   and both host decoders timed on the host clock;
 4. main path: a ``LiveEngine`` serves two requests that fetch the prefix
    and one plain request, 16 new tokens each; the kernels' launch counts
    are set to 0 just before and read just after, and must equal what the
-   path implies; the restored pages must equal the codec's dequantized
+   path implies (``rans_decode`` one launch per restored chunk, as
+   ``kv_restore``); the restored pages must equal the codec's dequantized
    frames bit for bit;
 5. virtual clock: the same weights and store behind a modeled WAN link
    (a constant ``BandwidthTrace``) and a decode table sized to the real
    blobs; one reuse request and one plain request, once with
    ``fetch_mode="sync"`` and once with ``"async"`` (pipelined transmit,
    decode and restore); per mode the counts are set to 0 before and read
-   after, ``kv_restore`` must equal one fetch's restores, the restored
-   pages must equal the codec's frames, the tokens must equal those of
-   phase 4 for the same prompts, and the modeled TTFT of async must be
-   below sync's, the plain request's below the reuse request's;
+   after, ``kv_restore`` and ``rans_decode`` must equal one fetch's
+   restores, the restored pages must equal the codec's frames, the tokens
+   must equal those of phase 4 for the same prompts, and the modeled TTFT
+   of async must be below sync's, the plain request's below the reuse
+   request's;
 5b. storage tier: the same weights behind a two-node ``StorageCluster``
    (replication 1, manual heal) with a host-staging ``PrefetchManager``;
    only the prefix's first 256 tokens (the ancestor) are registered from
@@ -67,9 +77,10 @@ JAX or of the JAX package.  Phases:
    set-up's manifest; R3 asks for the ancestor: a full hit on the other
    node, which stages the prefix in host memory; R4 asks for the prefix:
    a host hit, whose tokens must equal phase 4's.  Per request the
-   counts are set to 0 before and read after: ``kv_restore`` must equal
-   the fetched chunks, ``paged_attention`` the layers times the decode
-   steps; every fetch's pages must equal the codec's frames; the
+   counts are set to 0 before and read after: ``kv_restore`` and
+   ``rans_decode`` must equal the fetched chunks, ``paged_attention`` the
+   layers times the decode steps; every fetch's pages must equal the
+   codec's frames; the
    cluster's and the prefetcher's event logs, each request's TTFT and
    fetch time, and the phase's wall time are logged;
 5c. fleet: a ``LiveFleet`` of 4 full-width engines sharing the one copy
@@ -83,7 +94,8 @@ JAX or of the JAX package.  Phases:
    (``local_restore``: a real restore at zero network time), the prefix
    fetched and restored locally, the ancestor missed once.  The counts
    are set to 0 before and read after, overall and per node:
-   ``kv_restore`` must equal the chunks restored, ``paged_attention``
+   ``kv_restore`` and ``rans_decode`` must equal the chunks restored,
+   ``paged_attention``
    the layers times each node's decode steps; every restore's pages
    must equal the codec's frames; tokens must equal phase 4's for its
    prompts, a local hit's the full hit's and the miss's those of a plain
@@ -101,8 +113,9 @@ JAX or of the JAX package.  Phases:
    chunks over 11 layer groups runs as three per-shard flows (4/4/3
    groups) through the one controller; one reuse and one plain request,
    ``sync`` then ``async``.  Per mode the counts are set to 0 before and
-   read after: ``kv_restore`` must equal one fetch's chunks,
-   ``paged_attention`` the layers times the decode steps; the fetch must
+   read after: ``kv_restore`` and ``rans_decode`` must equal one fetch's
+   chunks, ``paged_attention`` the layers times the decode steps; the
+   fetch must
    split into three non-empty subplans; the restored pages must equal the
    codec's frames; the pages' DTensor views must be placed
    ``(Replicate(), Shard(3))`` and share the pages' storage; the tokens
@@ -174,13 +187,16 @@ JAX or of the JAX package.  Phases:
    group (16 tokens, H 16, D 128), and ``paged_attention`` within 1e-4
    at the batch of three (context 543, H = K = 16, hd 128); each timed
    beside its bound (``paged_attention`` also beside SDPA) and counted in
-   the ``--kernel-counts`` child;
+   the ``--kernel-counts`` child; ``rans_decode`` byte-equal and timed on
+   the streams of the path's chunks of a 3-layer and of the one-layer
+   group;
 13. the MoE path: phase 4's requests (two that fetch the prefix, one
    plain; 16-token suffixes, 16 new tokens) through deepseek-moe-16b's
    ``LiveEngine``, the counts set to 0 just before and read just after
-   (``kv_restore`` one launch per fetched chunk, ``paged_attention`` 28
-   per decode step); the restored pages bit-equal to the codec's
-   dequantized frames; the plain request's first-token logits within
+   (``kv_restore`` and ``rans_decode`` one launch per fetched chunk,
+   ``paged_attention`` 28 per decode step); the restored pages bit-equal
+   to the codec's dequantized frames; the plain request's first-token
+   logits within
    2e-4 of the largest |logit| of ``transformer.prefill`` of the same
    prompt on the card (both route its 528 tokens as one group); the
    TTFTs, fetch times, median decode step, peak memory and whether reuse
@@ -252,6 +268,7 @@ from repro_torch.cluster.storage import (  # noqa: E402
     KVStore, StorageCluster, StorageNode, StoredPrefix)
 from repro_torch.configs import (  # noqa: E402
     ASSIGNED_ARCHS, InputShape, get_config, reduce_config)
+from repro_torch.core import entropy  # noqa: E402
 from repro_torch.core.chunks import (  # noqa: E402
     decode_chunk_tokens, decode_state_snapshot, encode_prefix,
     encode_state_snapshot, prefix_key)
@@ -260,6 +277,7 @@ from repro_torch.core.adaptive import DecodeTable  # noqa: E402
 from repro_torch.core.layout import (  # noqa: E402
     IntraLayout, frame_geometry, pack_frames)
 from repro_torch.core.prediction import UNZIGZAG, ZIGZAG  # noqa: E402
+from repro_torch.core.quantization import quantize  # noqa: E402
 from repro_torch.core.scheduler import Request  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batches  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
@@ -268,6 +286,7 @@ from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
 from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
     kv_restore_layers_ref, kv_restore_ref)
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
+from repro_torch.kernels.rans_decode import ops as rans_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -428,6 +447,16 @@ def graph_ms(fn, iters: int = 100, reps: int = 5) -> float:
     return time_ms(graph.replay, iters=1, reps=reps) / iters
 
 
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``reps`` calls of ``fn``, in ms."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
 def bound(n_bytes: float, n_flops: float,
           flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -499,6 +528,14 @@ def count_kernels_child() -> int:
     calls["token_delta_encode"] = lambda: td_ops.token_delta_encode(video)
     calls["token_delta_decode_frames"] = (
         lambda: td_ops.token_delta_decode_frames(zero, video))
+    # the six streams of a chunk of lwm-7b's 3-layer groups at 240p
+    lwm = get_config("lwm-7b")
+    codec = KVCodec(lwm.num_kv_heads, lwm.head_dim)
+    q = np.random.default_rng(SEED + 7).integers(
+        0, 256, (TOKENS_PER_CHUNK, 3, lwm.num_kv_heads, lwm.head_dim),
+        dtype=np.uint8)
+    streams = codec.rans_streams(codec.encode_chunk(q, RESOLUTION))
+    calls["rans_decode"] = lambda: rans_ops.rans_decode_streams(streams, dev)
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -546,10 +583,11 @@ def kernel_counts() -> dict:
         # what the sources launch: kv_restore one kernel, ssd_scan C.B^T
         # then the scan, its backward C.B^T, the sweeps and the pieces
         # (and two PyTorch sums of dB and dC over a group's heads), the
-        # token-delta ops one kernel per stack, paged_attention its split
-        # kernel and, when it splits the pages, the merge
+        # token-delta ops one kernel per stack, rans_decode one kernel per
+        # chunk, paged_attention its split kernel and, when it splits the
+        # pages, the merge
         want = {"ssd_scan": 2, "ssd_scan_bwd": 5, "token_delta_encode": 1,
-                "token_delta_decode_frames": 1}.get(
+                "token_delta_decode_frames": 1, "rans_decode": 1}.get(
             name, 1 if name.startswith("kv_restore") or c["splits"] == 1
             else 2)
         log(f"[profile] {name}: {c['kernels']} CUDA kernels per op call "
@@ -713,6 +751,82 @@ def kv_restore_phase(dev, cfg, man, n_kernels: int, frame_timing: bool):
                 source="src/repro_torch/kernels/kv_restore/kv_restore.cu",
                 replaces="src/repro/kernels/kv_restore/kv_restore.py:35",
                 max_abs_err=err, library_ms=None, by_group=by_group)
+
+
+def rans_case(dev, streams) -> dict:
+    """``rans_decode_streams`` on the card against the host's numpy decoder
+    (``entropy.decode``) and against its plain version (the op on the CPU:
+    ``ref.rans_decode_ref``), byte for byte; then one launch timed in a
+    CUDA graph, the whole call (pack, pinned upload, launch, wait,
+    readback) and both host decoders on the host clock, and the bound."""
+    parsed = [entropy.parse_stream(st) for st in streams]
+    want = [entropy.decode(st) for st in streams]
+    t0 = time.perf_counter()
+    plain = rans_ops.rans_decode_streams(streams, "cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = rans_ops.rans_decode_streams(streams, dev)
+    for i, (w, p, g) in enumerate(zip(want, plain, got)):
+        check(np.array_equal(p.numpy(), w),
+              f"rans_decode plain version != entropy.decode (stream {i})")
+        check(np.array_equal(g.numpy(), w),
+              f"rans_decode kernel != entropy.decode (stream {i})")
+    packed = rans_ops.pack(parsed)
+    dev_in = packed.host_in.to(dev)
+    dev_out = torch.empty(packed.out_bytes, dtype=torch.uint8, device=dev)
+    ms = graph_ms(lambda: rans_ops.launch(dev_in, dev_out, len(packed.live),
+                                          packed.threads))
+    call_ms = host_ms(lambda: rans_ops.rans_decode_streams(streams, dev), 20)
+    numpy_ms = host_ms(lambda: [entropy.decode(st) for st in streams], 3)
+    symbols = sum(st.n for st in parsed)
+    n_bytes = sum(len(st) for st in streams) + symbols
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                call_ms=call_ms, numpy_ms=numpy_ms, symbols=symbols,
+                n_bytes=n_bytes, blocks=len(packed.live),
+                rounds=max(-(-st.n // st.lanes) for st in parsed))
+
+
+def rans_log(what: str, c: dict, n_kernels: int) -> None:
+    log(f"[kernel] rans_decode {what}: byte-equal to entropy.decode and to "
+        f"the plain version; {n_kernels} CUDA kernel per call, "
+        f"{c['blocks']} blocks; {c['symbols']} symbols, {c['rounds']} "
+        f"rounds in the longest stream; device {c['ms'] * 1e3:.2f} us/launch"
+        f" ({c['ms'] * 1e6 / c['rounds']:.0f} ns a round); the whole call "
+        f"{c['call_ms'] * 1e3:.2f} us; host numpy decode "
+        f"{c['numpy_ms']:.2f} ms; plain version {c['plain_ms']:.2f} ms on "
+        f"the host; bound {c['bound_ms'] * 1e3:.4f} us by {c['bound_by']} "
+        f"({c['n_bytes']} bytes; the chain of rounds sets the time)")
+
+
+def rans_decode_phase(dev, cfg, man, n_kernels: int, kv=None):
+    """``rans_decode`` at ``cfg``'s path: the streams of the path's first
+    fetched chunk (a 3-layer group) and of a chunk of the remainder group,
+    as the store holds them, each through ``rans_case``.  With ``kv`` (the
+    donor's K and V), also a yi-9b-shaped chunk: layers 0-2 and kv heads
+    0-3 of K then V, 1,024 tokens, quantised and encoded at 240p.  Returns
+    the kernel row, with ``by_group`` as ``kv_restore_phase``'s."""
+    codec = KVCodec(cfg.num_kv_heads, cfg.head_dim)
+    by_group = {}
+    for ref in (man.refs[0], next(r for r in man.refs if len(r.layers) < 3)):
+        c = rans_case(dev, codec.rans_streams(
+            man.blobs[(ref.chunk_id, RESOLUTION)]))
+        by_group[len(ref.layers)] = c
+        rans_log(f"{cfg.name} G={len(ref.layers)} (chunk {ref.chunk_id}, "
+                 f"{ref.token_end - ref.token_start} tokens)", c, n_kernels)
+    if kv is not None:
+        q, _ = quantize(np.concatenate([k[:, :3, :4] for k in kv]))
+        check(q.shape == (2 * PREFIX_TOKENS, 3, 4, 128),
+              f"the yi-9b-shaped chunk is {q.shape}")
+        yi = KVCodec(4, 128, IntraLayout(4, 128, 2, 1))
+        blob = yi.encode_chunk(q, RESOLUTION)
+        rans_log(f"yi-9b-shaped chunk ({q.shape[0]} tokens x 3 layers x 4 kv "
+                 f"heads x 128 of {cfg.name}'s donor K and V, "
+                 f"{yi.frame_count(blob)} frames)",
+                 rans_case(dev, yi.rans_streams(blob)), n_kernels)
+    return dict(by_group[3], name="rans_decode", route="cuda",
+                source="src/repro_torch/kernels/rans_decode/rans_decode.cu",
+                replaces="none (host numpy: src/repro/core/entropy.py:147)",
+                max_abs_err=0.0, library_ms=None, by_group=by_group)
 
 
 def restores_by_group(man) -> dict:
@@ -1059,6 +1173,18 @@ def profile_step(fn, what: str = "one decode step"):
     return busy
 
 
+def counted() -> dict:
+    """The serving kernels' launch counts: ``rans_decode`` one launch per
+    restored chunk on the card, as ``kv_restore``."""
+    return {"kv_restore": kv_ops.launches,
+            "paged_attention": pa_ops.launches,
+            "rans_decode": rans_ops.launches}
+
+
+def reset_counts() -> None:
+    kv_ops.launches = pa_ops.launches = rans_ops.launches = 0
+
+
 def serve(dev, cfg, params, store, key, prompts, plain, reuse: bool):
     eng = LiveEngine(params, cfg, store, n_pages=N_PAGES, device=dev)
     reqs = [eng.submit(p, reuse_prefix=key if reuse else None,
@@ -1075,8 +1201,7 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
     reuse_reqs = reqs[:2]
     step_ms, profiled, checked = [], False, False
     torch.cuda.synchronize()
-    kv_ops.launches = 0
-    pa_ops.launches = 0
+    reset_counts()
     busy = True
     while busy:
         prefilled = all(r.t_first_token is not None for r in reqs)
@@ -1091,13 +1216,12 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
         if not checked and all(r.t_first_token is not None
                                for r in reuse_reqs):
             # pages still held: compare them before the sequences finish
-            n_kv, n_pa = kv_ops.launches, pa_ops.launches
+            n = counted()
             for r in reuse_reqs:
                 check_restored_pages(eng, cfg, man, r.rid, frames)
-            checked = (n_kv, n_pa) == (kv_ops.launches, pa_ops.launches)
+            checked = n == counted()
             check(checked, "page check launched a kernel")
-    launches = {"kv_restore": kv_ops.launches,
-                "paged_attention": pa_ops.launches}
+    launches = counted()
     check(len(eng.finished) == len(reqs), "not every request finished")
     for r in reqs:
         out = eng.outputs[r.rid]
@@ -1106,7 +1230,8 @@ def main_path(dev, cfg, params, store, man, prefix, prompts, plain,
               f"rid {r.rid}: bad output {out}")
     decode_steps = len({t for r in reqs for t in r.token_times[1:]})
     want = {"kv_restore": 2 * expected_restores(cfg, man),
-            "paged_attention": cfg.num_layers * decode_steps}
+            "paged_attention": cfg.num_layers * decode_steps,
+            "rans_decode": 2 * expected_restores(cfg, man)}
     log(f"[{tag}] launches {launches}, expected {want} "
         f"({decode_steps} decode steps)")
     check(launches == want, "launch counts differ from the main path's")
@@ -1179,8 +1304,7 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
                            max_new_tokens=NEW_TOKENS)
         other = eng.submit(plain, max_new_tokens=NEW_TOKENS)
         torch.cuda.synchronize()
-        kv_ops.launches = 0
-        pa_ops.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         checked, steps, t_check = False, 0, 0.0
         while eng.step():
@@ -1190,20 +1314,19 @@ def virtual_path(dev, cfg, params, store, man, prefix, prompts, plain,
                 # the check decodes every chunk again on the host: its
                 # time is taken out of the run's wall time
                 t1 = time.perf_counter()
-                n_kv, n_pa = kv_ops.launches, pa_ops.launches
+                n = counted()
                 check_restored_pages(eng, cfg, man, reuse.rid, frames)
-                check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
-                      "page check launched a kernel")
+                check(n == counted(), "page check launched a kernel")
                 checked = True
                 t_check = time.perf_counter() - t1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - t_check
-        launches = {"kv_restore": kv_ops.launches,
-                    "paged_attention": pa_ops.launches}
+        launches = counted()
         reqs = (reuse, other)
         decode_steps = len({t for r in reqs for t in r.token_times[1:]})
         want = {"kv_restore": want_kv,
-                "paged_attention": cfg.num_layers * decode_steps}
+                "paged_attention": cfg.num_layers * decode_steps,
+                "rans_decode": want_kv}
         log(f"[virtual] {mode}: launches {launches}, expected {want} "
             f"({decode_steps} decode steps)")
         check(checked, f"{mode}: the restored pages were not checked")
@@ -1261,7 +1384,7 @@ def sharded_path(dev, cfg, params, store, man, prefix, prompts, plain,
     log(f"[sharded] mesh {mesh}; backend "
         f"{torch.distributed.get_backend()}; mesh_shards {MESH_SHARDS} over "
         f"{n_groups} layer groups; {want_kv} chunks a fetch")
-    launches = {"kv_restore": 0, "paged_attention": 0}
+    launches = dict.fromkeys(counted(), 0)
     by_batch: dict = {}
     split = engine_mod.split_plan_shards
     decode_paged = paged_model.decode_paged
@@ -1296,8 +1419,7 @@ def sharded_path(dev, cfg, params, store, man, prefix, prompts, plain,
                                max_new_tokens=NEW_TOKENS)
             other = eng.submit(plain, max_new_tokens=NEW_TOKENS)
             torch.cuda.synchronize()
-            kv_ops.launches = 0
-            pa_ops.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             checked, steps, t_check = False, 0, 0.0
             with mock.patch.object(engine_mod, "split_plan_shards",
@@ -1310,21 +1432,18 @@ def sharded_path(dev, cfg, params, store, man, prefix, prompts, plain,
                           f"{mode}: the engine does not finish")
                     if not checked and reuse.t_first_token is not None:
                         t1 = time.perf_counter()
-                        n_kv, n_pa = kv_ops.launches, pa_ops.launches
+                        n = counted()
                         check_restored_pages(eng, cfg, man, reuse.rid, frames)
-                        check((n_kv, n_pa) == (kv_ops.launches,
-                                               pa_ops.launches),
-                              "page check launched a kernel")
+                        check(n == counted(), "page check launched a kernel")
                         checked = True
                         t_check = time.perf_counter() - t1
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0 - t_check
-            got = {"kv_restore": kv_ops.launches,
-                   "paged_attention": pa_ops.launches}
-            reqs = (reuse, other)
+            got = counted()
             decode_steps = len(batches)
             want = {"kv_restore": want_kv,
-                    "paged_attention": cfg.num_layers * decode_steps}
+                    "paged_attention": cfg.num_layers * decode_steps,
+                    "rans_decode": want_kv}
             sizes = [len(sp.chunks) for subs in splits for sp in subs]
             log(f"[sharded] {mode}: launches {got}, expected {want} "
                 f"({decode_steps} decode steps, batch sizes "
@@ -1433,30 +1552,29 @@ def storage_script(dev, cfg, params, prefix, prompt, kv_k, kv_v, man, *,
                        max_new_tokens=new_tokens)
         if on_card:
             torch.cuda.synchronize()
-        kv_ops.launches = 0
-        pa_ops.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         checked, t_check = False, 0.0
         while eng.step():
             if not checked and r.t_first_token is not None:
                 t1 = time.perf_counter()
                 if r.needs_fetch:
-                    n_kv, n_pa = kv_ops.launches, pa_ops.launches
+                    n = counted()
                     check_restored_pages(eng, cfg, fetched(r), r.rid,
                                          frames)
-                    check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
-                          "page check launched a kernel")
+                    check(n == counted(), "page check launched a kernel")
                 checked = True
                 t_check = time.perf_counter() - t1
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - t_check
-        launches = {"kv_restore": kv_ops.launches,
-                    "paged_attention": pa_ops.launches}
-        want = {"kv_restore": expected_restores(cfg, fetched(r))
-                if on_card and r.needs_fetch else 0,
+        launches = counted()
+        chunks = expected_restores(cfg, fetched(r)) \
+            if on_card and r.needs_fetch else 0
+        want = {"kv_restore": chunks,
                 "paged_attention": cfg.num_layers * (new_tokens - 1)
-                if on_card else 0}
+                if on_card else 0,
+                "rans_decode": chunks}
         check(r.storage_hit == want_hit,
               f"{name}: hit {r.storage_hit}, expected {want_hit}")
         check(checked and len(eng.outputs[r.rid]) == new_tokens
@@ -1511,7 +1629,7 @@ def storage_path(dev, cfg, params, man, prefix, prompts, kv_k, kv_v,
           f"R4 (host) {out['R4']['tokens']} != phase 4's "
           f"{wall_outputs[0]} for the same prompt")
     launches = {k: sum(o["launches"][k] for o in out.values())
-                for k in ("kv_restore", "paged_attention")}
+                for k in counted()}
     log(f"[storage] cluster events {events}")
     log(f"[storage] prefetch events {pf_events}")
     log(f"[storage] kv_restore launches per request "
@@ -1566,21 +1684,21 @@ def instrument(fleet):
     ``dispatch_fetch`` and ``local_restore`` (none of them calls
     another); per request, the wall time of its ``dispatch_fetch`` or
     ``local_restore``, ending in a device sync."""
-    per = [{"kv_restore": 0, "paged_attention": 0} for _ in fleet.engines]
+    per = [dict.fromkeys(counted(), 0) for _ in fleet.engines]
     dispatch_wall = {}
     for k, eng in enumerate(fleet.engines):
         for name in ("step", "dispatch_fetch", "local_restore"):
-            def counted(*a, _fn=getattr(eng, name), _k=k, _name=name):
-                kv0, pa0 = kv_ops.launches, pa_ops.launches
+            def wrapped(*a, _fn=getattr(eng, name), _k=k, _name=name):
+                n0 = counted()
                 t0 = time.perf_counter()
                 out = _fn(*a)
                 if _name != "step":
                     torch.cuda.synchronize()
                     dispatch_wall[a[0].rid] = time.perf_counter() - t0
-                per[_k]["kv_restore"] += kv_ops.launches - kv0
-                per[_k]["paged_attention"] += pa_ops.launches - pa0
+                for op, n in counted().items():
+                    per[_k][op] += n - n0[op]
                 return out
-            setattr(eng, name, counted)
+            setattr(eng, name, wrapped)
     return per, dispatch_wall
 
 
@@ -1653,11 +1771,10 @@ def fleet_path(dev, cfg, params, man, raw_kv_bytes, anc, prefix, prompts,
         if req.storage_hit in ("full", "local"):
             fleet = holder["fleet"]
             eng = fleet.engines[fleet.placement[req.rid]]
-            n_kv, n_pa = kv_ops.launches, pa_ops.launches
+            n = counted()
             check_restored_pages(eng, cfg, cluster.catalog[req.prefix]
                                  .manifest, req.rid, frames)
-            check((n_kv, n_pa) == (kv_ops.launches, pa_ops.launches),
-                  "page check launched a kernel")
+            check(n == counted(), "page check launched a kernel")
             holder["checked"].append(req.rid)
         t_check[0] += time.perf_counter() - t1
 
@@ -1693,15 +1810,13 @@ def fleet_path(dev, cfg, params, man, raw_kv_bytes, anc, prefix, prompts,
                         cache.block_table_array(seq_ids).shape[1]))
         return decode_paged(params, cfg, tokens, positions, cache, seq_ids)
 
-    kv_ops.launches = 0
-    pa_ops.launches = 0
+    reset_counts()
     holder["t0"] = time.perf_counter()
     with mock.patch.object(paged_model, "decode_paged", recorded):
         fleet.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - holder["t0"] - t_check[0]
-    launches = {"kv_restore": kv_ops.launches,
-                "paged_attention": pa_ops.launches}
+    launches = counted()
     peak = torch.cuda.max_memory_allocated()
     done = {r.rid: r for e in fleet.engines for r in e.finished}
     check(sorted(done) == list(range(len(script))),
@@ -1747,11 +1862,12 @@ def fleet_path(dev, cfg, params, man, raw_kv_bytes, anc, prefix, prompts,
     for k, eng in enumerate(fleet.engines):
         mine = [r for r in done.values() if fleet.placement[r.rid] == k]
         steps = len({t for r in mine for t in r.token_times[1:]})
-        want_nodes.append({
-            "kv_restore": sum(expected_restores(
-                cfg, cluster.catalog[r.prefix].manifest) for r in mine
-                if r.storage_hit in ("full", "local")),
-            "paged_attention": cfg.num_layers * steps})
+        chunks = sum(expected_restores(
+            cfg, cluster.catalog[r.prefix].manifest) for r in mine
+            if r.storage_hit in ("full", "local"))
+        want_nodes.append({"kv_restore": chunks,
+                           "paged_attention": cfg.num_layers * steps,
+                           "rans_decode": chunks})
     want = {n: sum(w[n] for w in want_nodes) for n in launches}
     log(f"[fleet] launches {launches}, expected {want}; per node "
         f"{per_node}, expected {want_nodes}")
@@ -2612,6 +2728,8 @@ def main() -> int:
           "the path's decode contexts differ from DECODE_CTX")
     kv_row = kv_restore_phase(dev, cfg, man, counts["kv_restore_layers"],
                               frame_timing=True)
+    rans_row = rans_decode_phase(dev, cfg, man, counts["rans_decode"],
+                                 kv=(kv_k, kv_v))
     rows = [kv_row]
     attn = {}
     for case, arch, lens, width, seed in ATTN_CASES:
@@ -2661,6 +2779,7 @@ def main() -> int:
     kv_shapes = {("lwm-7b", G): launches["kv_restore"] * share
                  for G, share in restores_by_group(man).items()}
     kv_times = {("lwm-7b", G): t for G, t in kv_row["by_group"].items()}
+    rans_times = {("lwm-7b", G): t for G, t in rans_row["by_group"].items()}
     del params, store, man, kv_k, kv_v, frames
     torch.cuda.empty_cache()
     small_reference(dev)
@@ -2698,6 +2817,9 @@ def main() -> int:
         frame_timing=False)
     kv_row["max_abs_err"] = max(kv_row["max_abs_err"], d_kv["max_abs_err"])
     kv_times.update({(DS_ARCH, G): t for G, t in d_kv["by_group"].items()})
+    d_rans = rans_decode_phase(dev, d_cfg, d_man, counts["rans_decode"])
+    rans_times.update({(DS_ARCH, G): t
+                       for G, t in d_rans["by_group"].items()})
     for case, arch, lens, width, seed in ATTN_CASES:
         if arch == DS_ARCH:
             attn[case] = paged_attention_case(
@@ -2760,6 +2882,25 @@ def main() -> int:
     log(f"[kernel] kv_restore over the path's {launches['kv_restore']} "
         f"launches: mean {kv_row['ms'] * 1e3:.2f} us/launch, bound "
         f"{kv_row['bound_ms'] * 1e3:.4f} us")
+    # rans_decode decodes every chunk that kv_restore restores: the same
+    # launches at the same chunk shapes
+    check(launches["rans_decode"] == launches["kv_restore"],
+          f"rans_decode {launches['rans_decode']} launches, kv_restore "
+          f"{launches['kv_restore']}")
+    for (arch, G), n in kv_shapes.items():
+        t = rans_times[arch, G]
+        log(f"[kernel] rans_decode {arch} G={G}: {n:.0f} launches on the "
+            f"path; device {t['ms'] * 1e3:.2f} us/launch, bound "
+            f"{t['bound_ms'] * 1e3:.4f} us, plain {t['plain_ms']:.2f} ms on "
+            f"the host; loss over the bound "
+            f"{n * (t['ms'] - t['bound_ms']):.3f} ms per run")
+    for k in ("ms", "plain_ms", "bound_ms"):
+        rans_row[k] = sum(n * rans_times[s][k]
+                          for s, n in kv_shapes.items()) / n_kv
+    log(f"[kernel] rans_decode over the path's {launches['rans_decode']} "
+        f"launches: mean {rans_row['ms'] * 1e3:.2f} us/launch, bound "
+        f"{rans_row['bound_ms'] * 1e3:.4f} us")
+    rows.append(rans_row)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

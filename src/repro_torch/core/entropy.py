@@ -1,8 +1,10 @@
 """Interleaved multi-lane rANS entropy coder (lossless, byte alphabet).
 
-This is the "bitstream engine" of the KV codec: the sequential entropy
-stage that on GPUs lives inside NVENC/NVDEC and here runs on the host CPUs
-fronting each TPU chip (see DESIGN.md hardware-adaptation table). It is a
+This is the "bitstream engine" of the KV codec: the entropy stage that on
+GPUs lives inside NVENC/NVDEC.  Encoding runs here on the host; decoding
+runs here on the host on the CPU path (``StreamDecoder``), and on the card
+through ``kernels/rans_decode`` (one launch per fetched chunk, every stream
+of it at once) when the engine serves on CUDA.  It is a
 real, self-contained compressor: static per-chunk frequency tables (12-bit
 precision, add-1 smoothed so every byte is codable), 64-bit-state rANS with
 32-bit renormalization (emits at most one u32 per symbol -> fully
@@ -13,6 +15,8 @@ Wire format of ``encode``:
   [n_words x u32 stream][lanes x u64 final states]
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -113,6 +117,40 @@ def encode(data: np.ndarray, lanes: int = DEFAULT_LANES) -> bytes:
 # Decode
 # ---------------------------------------------------------------------------
 
+HEADER_BYTES = 1 + 4 + 4 + 512 + 4  # lanes_log2, lanes, n, freq, n_words
+
+
+class Stream(NamedTuple):
+    """One encoded stream's fields, as views of its bytes."""
+    lanes: int
+    n: int
+    freq: np.ndarray    # [256] uint16, sums to PROB_SCALE
+    words: np.ndarray   # [n_words] uint32, in the order the decoder reads
+    states: np.ndarray  # [lanes] uint64, the encoder's final states
+
+
+def parse_stream(blob) -> Stream:
+    """Split an ``encode`` output into its fields; raises ValueError on a
+    stream shorter than its header says."""
+    buf = memoryview(blob).cast("B")
+    if len(buf) < HEADER_BYTES:
+        raise ValueError(f"rANS stream of {len(buf)} bytes is shorter than "
+                         f"its {HEADER_BYTES}-byte header")
+    lanes = int(np.frombuffer(buf[1:5], np.uint32)[0])
+    n = int(np.frombuffer(buf[5:9], np.uint32)[0])
+    freq = np.frombuffer(buf[9:9 + 512], np.uint16)
+    n_words = int(np.frombuffer(buf[521:525], np.uint32)[0])
+    end = HEADER_BYTES + 4 * n_words + 8 * lanes
+    if len(buf) < end:
+        raise ValueError(f"rANS stream truncated: {len(buf)} bytes, its "
+                         f"header ({n_words} words, {lanes} lanes) needs "
+                         f"{end}")
+    words = np.frombuffer(buf[HEADER_BYTES:HEADER_BYTES + 4 * n_words],
+                          np.uint32)
+    states = np.frombuffer(buf[HEADER_BYTES + 4 * n_words:end], np.uint64)
+    return Stream(lanes, n, freq, words, states)
+
+
 class StreamDecoder:
     """Incremental rANS decoder: call ``read(n)`` repeatedly.
 
@@ -122,17 +160,11 @@ class StreamDecoder:
     """
 
     def __init__(self, blob: bytes):
-        buf = memoryview(blob)
-        self.lanes = int(np.frombuffer(buf[1:5], np.uint32)[0])
-        self.n = int(np.frombuffer(buf[5:9], np.uint32)[0])
-        freq = np.frombuffer(buf[9:9 + 512], np.uint16).astype(np.uint64)
-        off = 9 + 512
-        n_words = int(np.frombuffer(buf[off:off + 4], np.uint32)[0])
-        off += 4
-        self.words = np.frombuffer(buf[off:off + 4 * n_words], np.uint32)
-        off += 4 * n_words
-        self.x = np.frombuffer(buf[off:off + 8 * self.lanes],
-                               np.uint64).copy()
+        stream = parse_stream(blob)
+        self.lanes, self.n = stream.lanes, stream.n
+        freq = stream.freq.astype(np.uint64)
+        self.words = stream.words
+        self.x = stream.states.copy()
         self.freq = freq
         self.cum = np.zeros(257, np.uint64)
         self.cum[1:] = np.cumsum(freq)

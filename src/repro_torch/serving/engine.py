@@ -501,11 +501,13 @@ class LiveEngine:
     # -- chunk-wise restoration (real codec + paged scatter) -----------------
     def _restore_chunk(self, req: Request, plan: FetchPlan,
                        pc: PlannedChunk) -> None:
-        """Decode one fetched chunk frame by frame on the host into a
-        layer-major staging buffer, then restore it into every layer of its
-        group with one upload and one ``kv_restore_layers`` launch.  The
-        pages are read only after the chunk's restore event, so this is
-        observably the frame-wise restore of the JAX engine."""
+        """Decode one fetched chunk frame by frame into a layer-major
+        staging buffer (its rANS streams in one ``rans_decode`` launch on
+        the card, on the host on the CPU; reconstruction on the host), then
+        restore it into every layer of its group with one upload and one
+        ``kv_restore_layers`` launch.  The pages are read only after the
+        chunk's restore event, so this is observably the frame-wise restore
+        of the JAX engine."""
         # sharded fetches restore under shadow requests; the pages and
         # the scales belong to the real rid
         req = self._shadow_real.get(req.rid, req)
@@ -524,8 +526,10 @@ class LiveEngine:
         off = 0
         rans_before = codec.rans_s
         with self.tracer.span("codec decode", req.rid) as span:
-            for toks, qt in codec.iter_decode_frames(blob):
-                buf = qt.nbytes * 2  # residual + reference frame
+            for toks, qt in codec.iter_decode_frames(blob, self.device):
+                # residual + reference frame, and on the card the chunk's
+                # symbols decoded ahead of the frames
+                buf = qt.nbytes * 2 + codec.held_bytes
                 self.stats.restore_buffer_high_water = max(
                     self.stats.restore_buffer_high_water, buf)
                 k = len(toks)

@@ -21,6 +21,7 @@ from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     paged_attention_ref)
+from repro_torch.kernels.rans_decode import ops as rans_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_scan_bwd_ref, ssd_scan_ref)
@@ -30,7 +31,9 @@ from repro_torch.kernels.token_delta.ref import (  # noqa: E402
     token_delta_encode_ref)
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.paged import cache as paged_cache  # noqa: E402
+from repro_torch.core import entropy  # noqa: E402
 from repro_torch.core.chunks import prefix_key  # noqa: E402
+from repro_torch.core.codec import KVCodec  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serving import paged_model, tracing  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
@@ -39,6 +42,9 @@ from repro_torch.training.optimizer import (  # noqa: E402
 from repro_torch.training.steps import (  # noqa: E402
     TrainState, make_train_step)
 from repro_torch.tree import flatten, tree_map  # noqa: E402
+
+from _rans_cases import (DISTS, cases, chunk_blob,  # noqa: E402
+                         chunk_streams, symbols)
 
 pytestmark = pytest.mark.gpu
 
@@ -351,6 +357,101 @@ def test_engine_spans_are_ranges_of_a_trace_of_the_card(cuda):
     assert len([e for e in events if e.device_type == card
                 and "kv_restore" in e.name]) == chunks
 
+
+@pytest.mark.parametrize("dist", DISTS)
+@pytest.mark.parametrize("n,lanes", cases())
+def test_rans_decode_kernel_equals_the_host_decoder(cuda, dist, n, lanes):
+    blob = entropy.encode(symbols(dist, n, seed=n * 7 + lanes), lanes)
+    before = rans_ops.launches
+    (got,) = rans_ops.rans_decode_streams([blob], cuda)
+    assert rans_ops.launches == before + (n > 0)  # an empty stream: none
+    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), entropy.decode(blob))
+
+
+def test_rans_decode_kernel_decodes_a_chunk_in_one_launch(cuda):
+    """A yi-9b-shaped chunk's six streams, then streams of 1, 32, 1,000 and
+    256 lanes (one empty) in one launch of blocks as wide as the widest."""
+    mixed = [entropy.encode(symbols(d, n, seed=n), lanes) for d, n, lanes in
+             (("uniform", 300, 1), ("skewed", 0, 32), ("skewed", 70_001, 32),
+              ("uniform", 9_999, 1000), ("single", 5_000, 256))]
+    for streams in (chunk_streams(chunk_blob(28)), mixed):
+        before = rans_ops.launches
+        got = rans_ops.rans_decode_streams(streams, cuda)
+        assert rans_ops.launches == before + 1
+        for s, g in zip(streams, got):
+            np.testing.assert_array_equal(g.numpy(), entropy.decode(s))
+
+
+def test_rans_decode_kernel_rejects_bad_arguments(cuda):
+    data = symbols("skewed", 5_000, 2)
+    with pytest.raises(ValueError, match="lanes"):
+        rans_ops.rans_decode_streams([entropy.encode(data, 2048)], cuda)
+    blob = entropy.encode(data, 256)
+    with pytest.raises(ValueError, match="truncated"):
+        rans_ops.rans_decode_streams([blob[:-1]], cuda)
+    on_card = torch.from_numpy(np.frombuffer(blob, np.uint8).copy()).to(cuda)
+    with pytest.raises(ValueError, match="host"):
+        rans_ops.rans_decode_streams([on_card], cuda)
+    # a word dropped from the stream: the block reads other than its words
+    s = entropy.parse_stream(blob)
+    short = bytearray(blob[:entropy.HEADER_BYTES])
+    short[521:525] = (s.words.size - 1).to_bytes(4, "little")
+    short += s.words[1:].tobytes() + s.states.tobytes()
+    with pytest.raises(ValueError, match="words"):
+        rans_ops.rans_decode_streams([bytes(short)], cuda)
+    p = rans_ops.pack([s])
+    dev_in = p.host_in.to(cuda)
+    with pytest.raises(ValueError, match="output"):
+        rans_ops.launch(dev_in, torch.empty(p.out_bytes, dtype=torch.uint8),
+                        1, p.threads)
+
+
+def test_engine_fetch_decodes_every_chunk_on_the_card(cuda):
+    """A reuse fetch on the card: one ``rans_decode`` launch a chunk, the
+    pages it restores equal to the CPU engine's (numpy decode), and each
+    chunk's ``rans_s`` inside its ``codec decode`` span."""
+    cfg = reduce_config(get_config("lwm-7b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab_size, 80)
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
+    prompt = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 8)])
+    restored = []
+    for dev in ("cpu", cuda):
+        store = KVStore()
+        store.register_prefix(prefix, kv_k, kv_v, tokens_per_chunk=32,
+                              resolutions=("240p",))
+        tr = tracing.Tracer()
+        eng = LiveEngine(tree_map(lambda t: t.to(dev), params), cfg, store,
+                         device=dev, tracer=tr)
+        r = eng.submit(prompt, reuse_prefix=prefix_key(prefix),
+                       reuse_tokens=len(prefix), max_new_tokens=8)
+        before = rans_ops.launches
+        while r.fetch_done is None:
+            eng.step()
+        man = store.lookup(prefix_key(prefix))
+        chunks = len(man.refs)
+        assert rans_ops.launches - before == (0 if dev == "cpu" else chunks)
+        if dev != "cpu":
+            # the high water counts each chunk's symbols decoded ahead
+            codec = KVCodec(cfg.num_kv_heads, cfg.head_dim)
+            held = max(sum(entropy.parse_stream(s).n
+                           for s in codec.rans_streams(b))
+                       for b in man.blobs.values())
+            assert eng.stats.restore_buffer_high_water > held
+        spans = tr.spans("codec decode")
+        assert len(spans) == chunks
+        for sp in spans:
+            assert 0.0 < sp.counts["rans_s"] <= sp.seconds
+        rows = torch.as_tensor(eng.cache.slots_for(
+            r.rid, np.arange(len(prefix))), device=eng.device).long()
+        restored.append([eng.cache.layer_rows(pages, layer)[rows].cpu()
+                         for pages in (eng.cache.k_pages, eng.cache.v_pages)
+                         for layer in range(cfg.num_layers)])
+        eng.run()
+    for a, b in zip(*restored):
+        assert torch.equal(a, b)
 
 
 def test_storage_tier_on_the_card_matches_the_cpu(cuda):
