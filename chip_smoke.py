@@ -12,7 +12,8 @@ JAX or of the JAX package.  Phases:
    child process that profiles once (a later profiler session in a
    process can lose every device record), the CUDA kernels of one call
    of each op at the paths' shapes (``rans_decode`` at the six streams
-   of a chunk of lwm-7b's 3-layer groups), which must be what its source
+   of a chunk of lwm-7b's 3-layer groups, ``moe_experts`` at
+   deepseek-moe-16b's batch-1 decode step), which must be what its source
    launches;
 2. set-up: lwm-7b at full width (32 layers, d 4096, 32 heads, hd 128,
    ff 11008, vocab 32000) with random fp32 weights from a seeded
@@ -189,19 +190,24 @@ JAX or of the JAX package.  Phases:
    beside its bound (``paged_attention`` also beside SDPA) and counted in
    the ``--kernel-counts`` child; ``rans_decode`` byte-equal and timed on
    the streams of the path's chunks of a 3-layer and of the one-layer
-   group;
+   group; ``moe_experts`` (the dropless layer's grouped experts) within
+   1e-5 of its plain loop at one layer's weights, routed by its router,
+   at decode batches of 1 and 3, suffixes of 16 and 256 and a 1,024-token
+   prefill, with every token on one expert, and with the experts no
+   token chose poisoned with NaN; each shape timed beside its bound;
 13. the MoE path: phase 4's requests (two that fetch the prefix, one
    plain; 16-token suffixes, 16 new tokens) through deepseek-moe-16b's
    ``LiveEngine``, the counts set to 0 just before and read just after
    (``kv_restore`` and ``rans_decode`` one launch per fetched chunk,
-   ``paged_attention`` 28 per decode step); the restored pages bit-equal
-   to the codec's dequantized frames; the plain request's first-token
-   logits within
-   2e-4 of the largest |logit| of ``transformer.prefill`` of the same
-   prompt on the card (both route its 528 tokens as one group); the
-   TTFTs, fetch times, median decode step, peak memory and whether reuse
-   equals a full prefill (logged, not asserted: the suffix's MoE group of
-   16 has capacity 1 per expert) are logged;
+   ``paged_attention`` 28 per decode step, ``moe_experts`` one call per
+   ``moe`` span, each span's experts at most its choices); the restored
+   pages bit-equal to the codec's dequantized frames; the plain request's
+   first-token logits within 2e-4 of the largest |logit| of
+   ``transformer.prefill`` of the same prompt on the card (at a capacity
+   factor of E, so that no choice is dropped, as the engine's dropless
+   layer drops none); the TTFTs, fetch times, median decode step, peak
+   memory and whether reuse equals a full prefill (logged, not asserted:
+   int8 KV) are logged;
 14. reference: the reduced deepseek-moe-16b engine (4 layers: a dense
    first layer, groups of 3 and 1) generates the same tokens on the card
    and on the CPU; each of the ten ``ASSIGNED_ARCHS``, reduced, with
@@ -235,6 +241,7 @@ and power limit, and the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -285,6 +292,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
 from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
     kv_restore_layers_ref, kv_restore_ref)
+from repro_torch.kernels.moe_experts import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_experts.ref import moe_experts_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.rans_decode import ops as rans_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
@@ -303,7 +312,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.roofline.analysis import model_flops  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
-from repro_torch.serving import paged_model  # noqa: E402
+from repro_torch.serving import paged_model, tracing  # noqa: E402
 from repro_torch.serving.engine import LiveEngine  # noqa: E402
 from repro_torch.training.optimizer import (  # noqa: E402
     AdamW, constant_schedule, cosine_schedule)
@@ -536,6 +545,16 @@ def count_kernels_child() -> int:
         dtype=np.uint8)
     streams = codec.rans_streams(codec.encode_chunk(q, RESOLUTION))
     calls["rans_decode"] = lambda: rans_ops.rans_decode_streams(streams, dev)
+    # deepseek-moe-16b's experts at a batch-1 decode step
+    ds = get_config(DS_ARCH)
+    E, d, ff = ds.num_experts, ds.d_model, ds.d_ff
+    wi = torch.randn(E, d, 2, ff, device=dev, generator=g) * d ** -0.5
+    wo = torch.randn(E, ff, d, device=dev, generator=g) * ff ** -0.5
+    xm = torch.randn(1, d, device=dev, generator=g)
+    ids = torch.randperm(E, device=dev, generator=g)[
+        :ds.experts_per_token][None].contiguous()
+    wts = torch.rand(1, ds.experts_per_token, device=dev, generator=g)
+    calls["moe_experts"] = lambda: moe_ops.moe_experts(xm, ids, wts, wi, wo)
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -585,9 +604,11 @@ def kernel_counts() -> dict:
         # (and two PyTorch sums of dB and dC over a group's heads), the
         # token-delta ops one kernel per stack, rans_decode one kernel per
         # chunk, paged_attention its split kernel and, when it splits the
-        # pages, the merge
+        # pages, the merge, moe_experts the sort, the gate-up and down
+        # products and the PyTorch sum over each token's choices
         want = {"ssd_scan": 2, "ssd_scan_bwd": 5, "token_delta_encode": 1,
-                "token_delta_decode_frames": 1, "rans_decode": 1}.get(
+                "token_delta_decode_frames": 1, "rans_decode": 1,
+                "moe_experts": 4}.get(
             name, 1 if name.startswith("kv_restore") or c["splits"] == 1
             else 2)
         log(f"[profile] {name}: {c['kernels']} CUDA kernels per op call "
@@ -2461,21 +2482,46 @@ def moe_path(dev, cfg, params, store, man, prefix, prompts, plain, frames):
         served.append((tokens[0].cpu().numpy(), logits[0]))
         return logits, kvs
 
+    moe_ops.launches = 0
+    t_spans = time.monotonic()
     with mock.patch.object(paged_model, "prefill_collect_kv", recorded):
         launches, _ = main_path(dev, cfg, params, store, man, prefix,
                                 prompts, plain, frames, tag="moe")
     torch.cuda.synchronize()
+    # every MoE layer call of both engines of main_path went through the
+    # grouped kernels, and a decode step of b sequences chose at most
+    # b x experts_per_token experts a layer
+    spans = tracing.TRACER.spans("moe", t_spans)
+    launches["moe_experts"] = moe_ops.launches
+    check(spans is not None and moe_ops.launches == len(spans) > 0,
+          f"moe_experts: {moe_ops.launches} kernel calls, "
+          f"{None if spans is None else len(spans)} MoE layer calls")
+    check(all(s.counts["experts"] <= min(cfg.num_experts,
+                                         s.counts["choices"])
+              for s in spans), "a moe span counts more experts than choices")
+    decode = {}
+    for s in spans:
+        if s.parent is not None and s.parent.name == "decode step":
+            b = s.counts["tokens"]
+            decode[b] = max(decode.get(b, 0), s.counts["experts"])
+    log(f"[moe] {len(spans)} MoE layer calls through moe_experts; most "
+        f"experts a decode step's layer call chose, by batch: {decode} "
+        f"(top {cfg.experts_per_token} a token)")
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     got = next(lg for toks, lg in served if np.array_equal(toks, plain))
-    ref, _ = tf.prefill(params, cfg, tokens=torch.as_tensor(plain[None],
-                                                             device=dev))
+    # transformer.prefill routes through capacity groups: at a capacity
+    # factor of E no choice is dropped, which is the engine's dropless
+    # routing
+    no_drop = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts)
+    ref, _ = tf.prefill(params, no_drop,
+                        tokens=torch.as_tensor(plain[None], device=dev))
     ref = ref[0, 0]
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     top2 = torch.topk(ref, 2).values
     log(f"[moe] plain request's first-token logits ({len(plain)} tokens, "
-        f"one routing group): engine vs transformer.prefill max abs err "
+        f"no choice dropped): engine vs transformer.prefill max abs err "
         f"{err:.4g} of the largest |logit| {scale:.4g}; argmax "
         f"{'agrees' if int(got.argmax()) == int(ref.argmax()) else 'differs'}"
         f" (top-2 margin {(top2[0] - top2[1]).item():.4g})")
@@ -2485,6 +2531,96 @@ def moe_path(dev, cfg, params, store, man, prefix, prompts, plain, frames):
         f"{peak} bytes ({peak / 2**30:.2f} GiB) beside "
         f"{n_params(params) * 4 / 2**30:.2f} GiB of weights")
     return launches
+
+
+#: (case, tokens) of ``moe_experts_phase``: deepseek-moe-16b's decode
+#: steps at batch 1 and 3 (phase 13), the 16- and 256-token suffixes and
+#: a 1,024-token prefill (the benchmark's documents), each at its
+#: variant (skinny, tiled 32, tiled 64)
+MOE_CASES = (("decode B=1", 1), ("decode B=3", 3), ("suffix 16", 16),
+             ("suffix 256", 256), ("prefill 1024", 1024))
+MOE_TOL = 1e-5  # of the largest |output|: fp32 sums in another order
+
+
+def moe_bound(cfg, n: int, choices: int, experts: int):
+    """The gate-up and down launches' bound (ms): each expert chosen read
+    once, the tokens' rows and the rows in between read and written
+    once; 2 x 3 x d x ff operations a choice (``kvbench/moe_bound.py``)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    up, up_by = bound(4 * (experts * d * 2 * ff + n * d + choices * ff),
+                      4.0 * choices * d * ff)
+    down, down_by = bound(4 * (experts * ff * d + choices * (ff + 1)
+                               + choices * d), 2.0 * choices * ff * d)
+    return up + down, up_by if up >= down else down_by
+
+
+def moe_experts_phase(dev, cfg, moe_p, n_kernels: int) -> dict:
+    """``moe_experts`` against its plain version on the card at
+    deepseek-moe-16b's widths (one layer's experts), tokens routed by its
+    router: each ``MOE_CASES`` shape, every token sent to one expert, and
+    the experts no token chose poisoned with NaN (read, they would show);
+    each shape timed in a CUDA graph beside its bound and the plain
+    version.  Returns the kernel row, means weighted by the decode case."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cfg_route = dataclasses.replace(cfg, norm_topk_prob=False)
+    wi, wo = moe_p["wi"], moe_p["wo"]
+    err, times = 0.0, {}
+
+    def inputs(n: int):
+        x = torch.randn(n, cfg.d_model, device=dev, generator=g)
+        _, w, ids = moe_mod.route(moe_p, x[None], cfg_route)
+        return x, ids[0].contiguous(), w[0].contiguous()
+
+    for case, n in MOE_CASES + (("every token on expert 5", 64),):
+        x, ids, w = inputs(n)
+        if case.startswith("every"):
+            ids = torch.stack([torch.randperm(E, device=dev, generator=g)
+                               for _ in range(n)])[:, :k]
+            ids[:, 0] = 5
+            ids[:, 1:] = torch.where(ids[:, 1:] == 5, E - 1, ids[:, 1:])
+            ids = ids.contiguous()
+        want, used = moe_experts_ref(x, ids, w, wi, wo)
+        got, got_used = moe_ops.moe_experts(x, ids, w, wi, wo)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item()
+        check(e <= MOE_TOL * scale and int(got_used) == int(used),
+              f"moe_experts kernel != plain version ({case}: max abs err "
+              f"{e:.3g} of {scale:.3g}, experts {int(got_used)} vs "
+              f"{int(used)})")
+        err = max(err, e / scale)
+        if n <= 16:
+            # the experts not chosen poisoned: the kernel reads none of them
+            chosen = torch.zeros(E, dtype=torch.bool, device=dev)
+            chosen[ids.reshape(-1)] = True
+            wi_p, wo_p = wi.clone(), wo.clone()
+            wi_p[~chosen] = float("nan")
+            wo_p[~chosen] = float("nan")
+            again, _ = moe_ops.moe_experts(x, ids, w, wi_p, wo_p)
+            check(torch.equal(again, got),
+                  f"moe_experts read an expert no token chose ({case})")
+            del wi_p, wo_p
+        if case.startswith("every"):
+            continue
+        variant, bm = moe_ops.plan(n * k, E)
+        ms = graph_ms(lambda: moe_ops.moe_experts(x, ids, w, wi, wo))
+        plain_ms = time_ms(lambda: moe_experts_ref(x, ids, w, wi, wo),
+                           iters=5, reps=3)
+        b_ms, b_by = moe_bound(cfg, n, n * k, int(used))
+        times[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+        log(f"[kernel] moe_experts {case} (n {n}, {n * k} choices, "
+            f"{int(used)} experts, variant {variant}, {bm}-row tiles): "
+            f"within {MOE_TOL} of the plain version's largest |out|; "
+            f"{n_kernels} CUDA kernels per call; device {ms * 1e3:.2f} "
+            f"us/call, bound {b_ms * 1e3:.2f} us by {b_by} "
+            f"({100 * b_ms / ms:.1f} %), plain {plain_ms * 1e3:.2f} us")
+    torch.cuda.empty_cache()
+    return dict(times["decode B=1"], name="moe_experts", route="cuda",
+                source="src/repro_torch/kernels/moe_experts/moe_experts.cu",
+                replaces="none (XLA: src/repro/models/moe.py apply_moe)",
+                max_abs_err=err, library_ms=None, by_case=times)
 
 
 # -- phase 14: the reduced zoo, card against CPU -------------------------------
@@ -2826,13 +2962,15 @@ def main() -> int:
                 dev, d_cfg.num_heads, d_cfg.num_kv_heads, d_cfg.head_dim,
                 PAGE_SIZE, lens, width, seed,
                 counts[f"paged_attention {case}"])
+    moe_row = moe_experts_phase(dev, d_cfg, d_params["layers"][1]["moe"],
+                                counts["moe_experts"])
     d_launches = moe_path(dev, d_cfg, d_params, d_store, d_man, d_prefix,
                           d_prompts, d_plain, {})
     per_shape[DS_ARCH] = d_launches["paged_attention"]
     kv_shapes.update({(DS_ARCH, G): d_launches["kv_restore"] * share
                       for G, share in restores_by_group(d_man).items()})
     for name, n in d_launches.items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     del d_params, d_store, d_man
     torch.cuda.empty_cache()
     log(f"[moe] phases 11-13 wall {time.perf_counter() - t_phase:.2f} s")
@@ -2901,6 +3039,7 @@ def main() -> int:
         f"launches: mean {rans_row['ms'] * 1e3:.2f} us/launch, bound "
         f"{rans_row['bound_ms'] * 1e3:.4f} us")
     rows.append(rans_row)
+    rows.append(moe_row)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -5,6 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
     InputShape,
     ModelConfig,
     get_config,
+    jax_routing,
     list_configs,
     reduce_config,
     register,

@@ -69,6 +69,12 @@ class ModelConfig:
     first_layer_dense: bool = False  # deepseek-moe: layer 0 is dense
     dense_d_ff: int = 0  # d_ff of that dense layer (0 -> d_ff)
     moe_capacity_factor: float = 1.25  # expert capacity = s*k*cf/E
+    # routing as DeepSeek's config.json names it: True renormalises the
+    # top-k softmax weights to sum to 1 (the JAX package always does)
+    norm_topk_prob: bool = True
+    # no capacity on the serving path (serving/paged_model.py): every
+    # (token, expert) choice is computed; training keeps capacity routing
+    moe_dropless: bool = False
 
     # SSM (mamba2)
     ssm_state: int = 0
@@ -197,6 +203,13 @@ def _validate(cfg: ModelConfig) -> None:
     if cfg.num_experts:
         assert cfg.experts_per_token > 0
     assert cfg.vocab_size > 0 and cfg.num_layers > 0 and cfg.d_model > 0
+
+
+def jax_routing(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` routed as the JAX package routes: top-k weights
+    renormalised and each routing group's capacity dropping choices on
+    every path.  The tests that hold the port to the JAX package pass it."""
+    return dataclasses.replace(cfg, norm_topk_prob=True, moe_dropless=False)
 
 
 def get_config(name: str) -> ModelConfig:

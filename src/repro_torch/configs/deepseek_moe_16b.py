@@ -2,7 +2,9 @@
 
 28L d_model=2048 16H (MHA kv=16) expert d_ff=1408 vocab=102400.
 64 routed experts top-6 + 2 shared experts; layer 0 uses a dense MLP
-(d_ff=10944), faithful to the release.
+(d_ff=10944), faithful to the release.  Routed as published
+(``norm_topk_prob`` false: the top-6 softmax weights are not
+renormalised; no capacity on the serving path).
 """
 from repro_torch.configs.base import ModelConfig, register
 
@@ -23,4 +25,6 @@ CONFIG = register(ModelConfig(
     experts_per_token=6,
     first_layer_dense=True,
     dense_d_ff=10944,
+    norm_topk_prob=False,
+    moe_dropless=True,
 ))

@@ -1,11 +1,15 @@
 """Mixture-of-Experts layer: top-k routing with fixed expert capacity
 (gather dispatch, no one-hot dispatch tensors), optional shared experts
-(DeepSeekMoE), switch-style load-balance aux loss.
+(DeepSeekMoE), switch-style load-balance aux loss; and the dropless layer
+of the serving path (`apply_moe_dropless`).
 
-Counterpart of ``repro/models/moe.py``, with its semantics held exactly.
-Tokens are processed in groups (the batch dim).  Per group:
+`apply_moe` is the counterpart of ``repro/models/moe.py``, with its
+semantics held exactly under the JAX package's routing
+(``configs.jax_routing``).  Tokens are processed in groups (the batch
+dim).  Per group:
   1. router logits (fp32) -> softmax -> top-k experts, weights
-     renormalised over the k;
+     renormalised over the k where ``cfg.norm_topk_prob`` (the JAX
+     package's only routing; DeepSeekMoE's published config leaves them);
   2. position-in-expert by a token-major cumsum over the flattened
      (token, choice) list; with capacity ``cap = max(1, int(s k cf / E))``
      the choices beyond it are dropped, and their weight mass is not
@@ -18,6 +22,12 @@ Tokens are processed in groups (the batch dim).  Per group:
 No TPU kernel backs this layer in the JAX package, so its products are
 plain ``torch.matmul``.  The init lives in ``repro_torch/params.py``.
 
+`apply_moe_dropless` (a config with ``moe_dropless``, on the serving path)
+computes every choice: no capacity, so how tokens are grouped does not
+change the result.  Its routed experts are one grouped op
+(``kernels/moe_experts``): on the card a counting sort of the choices by
+expert and two product launches over the chosen experts' rows only.
+
 Under a sharding rule context on DTensors (the dry run) the routing and
 dispatch gather, the experts and the combine each run as a local region
 (``sharding.rules.local_region``): routing is local to a group (the
@@ -27,12 +37,14 @@ and returned tokens out at the JAX package's sites.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_experts.ops import moe_experts
 from repro_torch.models.common import squared_relu
 from repro_torch.models.mlp import apply_mlp, mlp_param_axes
 from repro_torch.sharding.rules import local_region, shard_hint
@@ -56,7 +68,8 @@ def moe_param_axes(cfg: ModelConfig) -> dict:
 
 def route(p: dict, x: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [b, s, d] -> (probs [b, s, E] fp32, topw [b, s, k] renormalised,
+    """x [b, s, d] -> (probs [b, s, E] fp32, topw [b, s, k] the top-k
+    probabilities, renormalised to sum to 1 where ``cfg.norm_topk_prob``,
     tope [b, s, k] expert ids).  ``jax.lax.top_k`` puts the lower index
     first among equal values; a stable descending sort does the same,
     which ``torch.topk`` does not promise."""
@@ -66,7 +79,8 @@ def route(p: dict, x: torch.Tensor, cfg: ModelConfig
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
     topw, tope = srt[..., :k], idx[..., :k]
-    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    if cfg.norm_topk_prob:
+        topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
     return probs, topw, tope
 
 
@@ -147,6 +161,34 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x, cfg.mlp_kind)
     return out, aux
+
+
+def apply_moe_dropless(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       tracer=None) -> torch.Tensor:
+    """x [..., d] -> [..., d]: every token routed alone (softmax, top k,
+    the lower index first among equal scores, weights renormalised only
+    where ``cfg.norm_topk_prob``), every choice computed, plus the shared
+    experts.  With a ``tracer`` (``serving.tracing.Tracer``) the call is a
+    ``moe`` span counting ``tokens``, ``choices`` and, at the tracer's next
+    readback, ``experts`` (the distinct experts chosen)."""
+    if cfg.mlp_kind != "swiglu":
+        raise NotImplementedError(f"dropless experts of kind "
+                                  f"{cfg.mlp_kind!r}: only swiglu")
+    xf = x.reshape(-1, x.shape[-1])
+    n, k = xf.shape[0], cfg.experts_per_token
+    span = (tracer.span("moe", tokens=n, choices=n * k) if tracer is not None
+            else contextlib.nullcontext())
+    with span as s:
+        _, topw, tope = route(p, xf[None], cfg)
+        out, used = moe_experts(xf, tope[0].contiguous(),
+                                topw[0].contiguous(), p["wi"], p["wo"])
+        if s is not None:
+            tracer.defer(s, "experts", used)
+        out = out.view(x.shape)
+        if "shared" in p:
+            out = out + apply_mlp(p["shared"], x.reshape(1, n, -1),
+                                  cfg.mlp_kind).view(x.shape)
+    return out
 
 
 def _dispatch_local(p: dict, x: torch.Tensor, cfg: ModelConfig, cap: int):

@@ -575,7 +575,8 @@ class LiveEngine:
                     self._clock += self.cost.prefill_time(len(tokens))
             info = self.cache.seqs[req.rid]
             info.context_len = len(tokens)
-            nxt = int(torch.argmax(logits))
+            # the first token, with the step's deferred span counts
+            nxt = self.tracer.read_back(torch.argmax(logits))[0]
             self.outputs[req.rid].append(nxt)
             req.tokens_out = 1
             req.t_first_token = self.now()
@@ -684,7 +685,7 @@ class LiveEngine:
                 logits = paged_model.decode_paged(
                     self.params, self.cfg, toks, positions, self.cache,
                     seq_ids)
-                nxt = torch.argmax(logits, dim=-1).tolist()
+                nxt = self.tracer.read_back(torch.argmax(logits, dim=-1))
             if self.virtual:
                 ctx = float(np.mean([len(self.prompts[r.rid]) + r.tokens_out
                                      for r in active]))

@@ -23,14 +23,20 @@ from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import lm_logits
 from repro_torch.paged.cache import PagedKVCache
 from repro_torch.params import layer_params
+from repro_torch.serving import tracing
 
 
 def _mlp_out(lp, h2, cfg: ModelConfig):
-    """The layer's MLP.  An MoE layer routes each sequence of ``h2``
-    [b, s, d] as one group: a decode step's [b, 1, d] is b groups of one
-    token, as in the JAX package (whose ``decode_step`` routes the batch
-    as one group)."""
+    """The layer's MLP.  A dropless MoE layer (``cfg.moe_dropless``)
+    computes every choice of every token of ``h2`` [b, s, d], in a ``moe``
+    span of the tracer whose span is open (the engine's step).  Otherwise
+    an MoE layer routes each sequence as one capacity group: a decode
+    step's [b, 1, d] is b groups of one token, as in the JAX package (whose
+    ``decode_step`` routes the batch as one group)."""
     if "moe" in lp:
+        if cfg.moe_dropless:
+            return moe_mod.apply_moe_dropless(lp["moe"], h2, cfg,
+                                              tracing.current())
         out, _ = moe_mod.apply_moe(lp["moe"], h2, cfg)
         return out
     return mlp_mod.apply_mlp(lp["mlp"], h2, cfg.mlp_kind)

@@ -13,6 +13,15 @@ While a ``torch.profiler`` session is on, each span also enters
 profiler's clock beside the device's records.  With no session on, a
 span costs a flag check and two clock reads.
 
+Model code below the engine finds the tracer through `current()`: the
+tracer whose span is open innermost on this thread (the engine's
+``decode step`` or prefill span), or ``None`` outside any span, as in a
+donor prefill.  A count that lives on the device (the experts a ``moe``
+span's tokens chose) is deferred: `Tracer.defer` keeps the one-element tensor, and the
+engine's `Tracer.read_back` of a step's output tokens copies every
+deferred count to the host in the same transfer, so a count adds no
+synchronisation of its own.
+
 On the virtual clock (``LiveEngine(bandwidth=...)``) spans are still
 host time: they say where the host spent its time, not when the modeled
 network delivered.
@@ -24,14 +33,19 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import math
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 CAPACITY = 65_536
+
+#: the tracer whose span is open innermost on this thread
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("tracer",
+                                                         default=None)
 
 
 @dataclasses.dataclass
@@ -58,6 +72,7 @@ class Tracer:
         # it may have lost spans
         self._dropped_until = -math.inf
         self._open: List[Span] = []
+        self._deferred: List[Tuple[Span, str, torch.Tensor]] = []
 
     @contextlib.contextmanager
     def span(self, name: str, rid: Optional[int] = None,
@@ -72,9 +87,11 @@ class Tracer:
                  time.monotonic(),  # repro-lint: allow(no-wall-clock)
                  counts=counts)
         self._open.append(s)
+        token = _CURRENT.set(self)
         try:
             yield s
         finally:
+            _CURRENT.reset(token)
             if s.t1 is None:
                 s.t1 = time.monotonic()  # repro-lint: allow(no-wall-clock)
             self._open.pop()
@@ -85,6 +102,25 @@ class Tracer:
                 self._dropped_until = max(self._dropped_until,
                                           self.done[0].t1)
             self.done.append(s)
+
+    def defer(self, span: Span, key: str, value: torch.Tensor) -> None:
+        """Set ``span.counts[key]`` from the one-element integer tensor
+        ``value`` at the next `read_back`."""
+        self._deferred.append((span, key, value))
+
+    def read_back(self, t: torch.Tensor) -> List[int]:
+        """``t.tolist()`` of an integer tensor, with every deferred count
+        read in the same device-to-host copy and set on its span."""
+        if not self._deferred:
+            return t.reshape(-1).tolist()
+        n = t.numel()
+        vals = torch.cat([t.reshape(-1).to(torch.int64)]
+                         + [v.reshape(1) for _, _, v in self._deferred]
+                         ).tolist()
+        for (span, key, _), v in zip(self._deferred, vals[n:]):
+            span.counts[key] = v
+        self._deferred.clear()
+        return vals[:n]
 
     def spans(self, name: str, since: float = -math.inf,
               until: float = math.inf) -> Optional[List[Span]]:
@@ -98,3 +134,8 @@ class Tracer:
 
 
 TRACER = Tracer()
+
+
+def current() -> Optional[Tracer]:
+    """The tracer whose span is open innermost on this thread, if any."""
+    return _CURRENT.get()

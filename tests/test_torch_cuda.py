@@ -1108,3 +1108,111 @@ def test_token_delta_refuses_grad(cuda):
         td_ops.token_delta_decode_frames(video[0], wants_grad)
     assert torch.equal(td_ops.token_delta_encode(video),
                        token_delta_encode_ref(video))
+
+
+# -- the grouped expert kernels (kernels/moe_experts) --------------------------
+
+def _moe_inputs(cuda, n, seed, E=64, k=6, d=2048, ff=1408):
+    """deepseek-moe-16b's expert widths: x [n, d], k distinct experts a
+    token with softmax-sized weights, wi [E, d, 2, ff], wo [E, ff, d]."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, d, device=cuda, generator=g)
+    ids = torch.stack([torch.randperm(E, device=cuda, generator=g)[:k]
+                       for _ in range(n)])
+    w = torch.rand(n, k, device=cuda, generator=g) / k
+    wi = torch.randn(E, d, 2, ff, device=cuda, generator=g) * d ** -0.5
+    wo = torch.randn(E, ff, d, device=cuda, generator=g) * ff ** -0.5
+    return x, ids, w, wi, wo
+
+
+def _moe_close(got, want):
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n", [1, 3, 16, 256, 1024],
+                         ids=["decode B=1", "decode B=3", "suffix 16",
+                              "suffix 256", "prefill 1024"])
+def test_moe_experts_kernel_matches_the_plain_path(cuda, n):
+    """The sort, gate-up and down launches against the plain loop over
+    the chosen experts, at each variant (skinny, tiled 32, tiled 64);
+    the count of experts chosen read back."""
+    from repro_torch.kernels.moe_experts import ops as moe_ops
+    from repro_torch.kernels.moe_experts.ref import moe_experts_ref
+    x, ids, w, wi, wo = _moe_inputs(cuda, n, n)
+    before = moe_ops.launches
+    got, used = moe_ops.moe_experts(x, ids, w, wi, wo)
+    want, want_used = moe_experts_ref(x, ids, w, wi, wo)
+    assert moe_ops.launches == before + 1
+    _moe_close(got, want)
+    assert int(used) == int(want_used) == len(torch.unique(ids))
+
+
+def test_moe_experts_with_every_token_on_one_expert(cuda):
+    """64 tokens all choosing expert 5 first: its rows span several tiles
+    of every variant's size."""
+    from repro_torch.kernels.moe_experts import ops as moe_ops
+    from repro_torch.kernels.moe_experts.ref import moe_experts_ref
+    for n in (64, 300):
+        x, ids, w, wi, wo = _moe_inputs(cuda, n, 7)
+        ids[:, 1:] = torch.where(ids[:, 1:] == 5, ids[:, :1], ids[:, 1:])
+        ids[:, 0] = 5
+        got, used = moe_ops.moe_experts(x, ids.contiguous(), w, wi, wo)
+        want, want_used = moe_experts_ref(x, ids, w, wi, wo)
+        _moe_close(got, want)
+        assert int(used) == int(want_used)
+
+
+def test_moe_experts_reads_no_expert_no_token_chose(cuda):
+    """At a batch-1 decode step the 58 experts not chosen are NaN: the
+    kernels never read them, so the output equals the clean one's."""
+    from repro_torch.kernels.moe_experts import ops as moe_ops
+    x, ids, w, wi, wo = _moe_inputs(cuda, 1, 3)
+    clean, _ = moe_ops.moe_experts(x, ids, w, wi, wo)
+    unchosen = torch.ones(64, dtype=torch.bool, device=cuda)
+    unchosen[ids[0]] = False
+    wi[unchosen] = float("nan")
+    wo[unchosen] = float("nan")
+    got, used = moe_ops.moe_experts(x, ids, w, wi, wo)
+    assert torch.equal(got, clean) and int(used) == 6
+
+
+def test_moe_layer_on_the_card_never_synchronises(cuda):
+    """The dropless layer with its span on the card: no host
+    synchronisation inside (CUDA's sync debug mode raises on one); the
+    span's expert count arrives with the tokens' readback."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(reduce_config(get_config("deepseek-moe-16b")),
+                              num_experts=64, experts_per_token=6,
+                              num_shared_experts=2)
+    p = _to(init_params(dataclasses.replace(cfg, num_layers=2),
+                        torch.Generator().manual_seed(0),
+                        device="cpu")["layers"][1]["moe"], cuda)
+    x = torch.randn(3, 1, cfg.d_model, device=cuda)
+    moe.apply_moe_dropless(p, x, cfg)  # builds the kernels' library
+    torch.cuda.synchronize()
+    tr = tracing.Tracer()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = moe.apply_moe_dropless(p, x, cfg, tr)
+        (span,) = tr.spans("moe")
+        assert "experts" not in span.counts
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    toks = tr.read_back(torch.argmax(out[:, 0], dim=-1))
+    assert len(toks) == 3 and 6 <= span.counts["experts"] <= 18
+    cpu = moe.apply_moe_dropless(_to(p, "cpu"), x.cpu(), cfg)
+    assert (out.cpu() - cpu).abs().max().item() <= 1e-5 * cpu.abs().max()
+
+
+def test_moe_experts_refuses_grad_and_odd_widths(cuda):
+    from repro_torch.kernels.moe_experts import ops as moe_ops
+    x, ids, w, wi, wo = _moe_inputs(cuda, 2, 1, E=8, k=2, d=128, ff=64)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        moe_ops.moe_experts(x.requires_grad_(), ids, w, wi, wo)
+    x = x.detach()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_ops.moe_experts(x, ids, w, wi[..., :48].contiguous(),
+                            wo[:, :48].contiguous())

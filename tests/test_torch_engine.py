@@ -490,13 +490,15 @@ def test_moe_engine_matches_jax(arch, layers, n_pre, n_suf):
     """Reduced MoE models served by the port's engine and the JAX one from
     the same weights and donor KV: a reuse request (its suffix routes as
     one group, whose capacity drops choices at full width), a plain one
-    and a second reuse request, batched in decode."""
+    and a second reuse request, batched in decode.  The port routes as
+    the JAX package does (``configs.jax_routing``)."""
     from repro import configs as jax_configs
     from repro.models import transformer as jax_tf
 
     from repro_torch import configs
 
-    cfg = configs.reduce_config(configs.get_config(arch), num_layers=layers)
+    cfg = configs.jax_routing(configs.reduce_config(configs.get_config(arch),
+                                                    num_layers=layers))
     jcfg = jax_configs.reduce_config(jax_configs.get_config(arch),
                                      num_layers=layers)
     jp = jax_tf.init_params(jcfg, jax.random.PRNGKey(4))

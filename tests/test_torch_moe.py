@@ -41,8 +41,10 @@ SHAPES = [(3, 24), (3, 1), (1, 16)]
 
 
 def _cfgs(arch, changes):
-    return (dataclasses.replace(
-                configs.reduce_config(configs.get_config(arch)), **changes),
+    """The port's config routed as the JAX package routes
+    (``configs.jax_routing``), and the JAX package's."""
+    return (dataclasses.replace(configs.jax_routing(
+                configs.reduce_config(configs.get_config(arch))), **changes),
             dataclasses.replace(
                 jax_configs.reduce_config(jax_configs.get_config(arch)),
                 **changes))
@@ -180,3 +182,163 @@ def test_expert_weights_are_read_in_place(monkeypatch):
                     "swiglu")
     assert seen[0].data_ptr() == port["wi"].data_ptr()
     assert seen[1].data_ptr() == port["wo"].data_ptr()
+
+
+# -- the published routing and the dropless serving layer --------------------
+
+from repro_torch.kernels.moe_experts import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_experts import ref as moe_ref  # noqa: E402
+
+#: deepseek's full-width routing at a narrow width, as published:
+#: unnormalised top-6 weights, no capacity
+PUBLISHED = dict(MOE_CASES[2][2], norm_topk_prob=False, moe_dropless=True)
+
+
+def _published(seed):
+    cfg = dataclasses.replace(
+        configs.reduce_config(configs.get_config("deepseek-moe-16b")),
+        **PUBLISHED)
+    assert (cfg.norm_topk_prob, cfg.moe_dropless) == (False, True)
+    _, port = _weights(dataclasses.replace(
+        jax_configs.reduce_config(jax_configs.get_config("deepseek-moe-16b")),
+        **MOE_CASES[2][2]), seed)
+    return cfg, port
+
+
+def _loop(port, x, cfg, ids, w):
+    """Each token's choices, one at a time: weight x SwiGLU expert output,
+    summed in choice order; no shared experts."""
+    out = torch.zeros_like(x)
+    for t in range(x.shape[0]):
+        for c in range(ids.shape[1]):
+            e = int(ids[t, c])
+            h = torch.nn.functional.silu(x[t] @ port["wi"][e, :, 0]) \
+                * (x[t] @ port["wi"][e, :, 1])
+            out[t] += w[t, c] * (h @ port["wo"][e])
+    return out
+
+
+def test_published_weights_are_the_top_probabilities_as_they_are():
+    """``norm_topk_prob`` false: a token's six weights are its six largest
+    softmax probabilities, unscaled, so they sum below 1."""
+    cfg, port = _published(4)
+    x = torch.from_numpy(_x(cfg, (2, 9), 3))
+    probs, topw, tope = moe.route(port, x, cfg)
+    assert torch.equal(topw, torch.gather(probs, -1, tope))
+    assert bool((topw.sum(-1) < 1.0).all())
+    renorm = dataclasses.replace(cfg, norm_topk_prob=True)
+    _, topw_n, tope_n = moe.route(port, x, renorm)
+    assert torch.equal(tope, tope_n)
+    np.testing.assert_allclose(topw_n.sum(-1).numpy(), 1.0, rtol=1e-6)
+
+
+def test_dropless_keeps_every_choice_when_every_token_picks_one_expert():
+    """Every token's first choice is expert 8: the dropless layer computes
+    all 16 x 6 choices, as a loop over each token's choices does, where
+    capacity routing keeps one of expert 8's sixteen."""
+    cfg, port = _published(5)
+    del port["shared"]
+    router = port["router"].clone()
+    router[:, 8] = 4.0 * router[:, 8].abs()
+    port = dict(port, router=router)
+    x = torch.from_numpy(np.abs(_x(cfg, (1, 16), 2)))
+    _, topw, tope = moe.route(port, x, cfg)
+    assert bool((tope[0, :, 0] == 8).all())
+    got = moe.apply_moe_dropless(port, x, cfg)
+    want = _loop(port, x[0], cfg, tope[0], topw[0])
+    np.testing.assert_allclose(got[0].numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    capped, _ = moe.apply_moe(port, x, dataclasses.replace(
+        cfg, moe_dropless=False))
+    assert float((capped - got).abs().max()) > 1e-3 * float(
+        want.abs().max())
+
+
+def test_dropless_result_is_the_same_whatever_the_grouping():
+    """A prefill's tokens routed together, as sequences, one token at a
+    time, or split as a reuse request splits prefix and suffix: the same
+    output, up to float rounding."""
+    cfg, port = _published(6)
+    x = torch.from_numpy(_x(cfg, (3, 8), 9))
+    whole = moe.apply_moe_dropless(port, x, cfg)
+    scale = float(whole.abs().max())
+    for parts in ([x.reshape(1, 24, -1)], [x.reshape(24, 1, -1)],
+                  [x.reshape(1, 24, -1)[:, :17], x.reshape(1, 24, -1)[:, 17:]]):
+        got = torch.cat([moe.apply_moe_dropless(port, p, cfg).reshape(-1, 64)
+                         for p in parts])
+        assert float((got - whole.reshape(-1, 64)).abs().max()) \
+            <= 1e-6 * scale
+
+
+CHOICES = {
+    "random": lambda g, n, E, k: torch.stack(
+        [torch.randperm(E, generator=g)[:k] for _ in range(n)]),
+    "every token on expert 3": lambda g, n, E, k: torch.cat(
+        [torch.full((n, 1), 3), torch.stack([
+            torch.randperm(E - 1, generator=g)[:k - 1] + 4
+            for _ in range(n)]) % E], 1),
+    "few experts chosen": lambda g, n, E, k: torch.stack(
+        [torch.randperm(k + 1, generator=g)[:k] * 7 for _ in range(n)]),
+}
+
+
+@pytest.mark.parametrize("n", [1, 3, 40])
+@pytest.mark.parametrize("kind", sorted(CHOICES))
+def test_grouped_plain_path_matches_a_per_expert_loop(kind, n):
+    """The kernel's data flow on the CPU (counting sort, row tiles of each
+    variant's size, gate-up over sorted rows, down written at each
+    choice's row, the combine) against the plain loop over the chosen
+    experts, and that against each token's choices one at a time."""
+    g = torch.Generator().manual_seed(n)
+    E, k, d, ff = 64, 6, 32, 16
+    ids = CHOICES[kind](g, n, E, k)
+    assert all(len(set(r.tolist())) == k for r in ids)
+    x = torch.randn(n, d, generator=g)
+    w = torch.rand(n, k, generator=g) / k
+    wi = torch.randn(E, d, 2, ff, generator=g) / d ** 0.5
+    wo = torch.randn(E, ff, d, generator=g) / ff ** 0.5
+    want, used = moe_ref.moe_experts_ref(x, ids, w, wi, wo)
+    assert int(used) == len(torch.unique(ids))
+    port = {"wi": wi, "wo": wo}
+    np.testing.assert_allclose(want.numpy(),
+                               _loop(port, x, None, ids, w).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    for _, bm in moe_ops.VARIANTS:
+        got = moe_ref.moe_experts_grouped_ref(x, ids, w, wi, wo, bm)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    out, count = moe_ops.moe_experts(x, ids, w, wi, wo)
+    assert torch.equal(out, want) and count.tolist() == [int(used)]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_counting_sort_tiles_only_the_chosen_experts(seed):
+    """The sort is stable by expert; each tile holds at most bm rows of
+    one expert; an expert with no choice has no tile; the tiles fit the
+    host's bound that sizes the kernels' grid."""
+    g = torch.Generator().manual_seed(seed)
+    E, k = 64, 6
+    n = int(torch.randint(1, 300, (1,), generator=g))
+    ids = torch.stack([torch.randperm(E, generator=g)[:k]
+                       for _ in range(n)]) % (8 + 7 * seed)
+    flat = ids.reshape(-1)
+    for _, bm in moe_ops.VARIANTS:
+        s = moe_ref.moe_sort_ref(ids, E, bm)
+        assert torch.equal(flat[s.order], torch.sort(flat).values)
+        for e in range(E):
+            mine = s.order[s.offsets[e]:s.offsets[e + 1]]
+            assert bool((mine[1:] > mine[:-1]).all())  # stable
+        assert set(s.tile_e.tolist()) == set(flat.tolist())
+        assert s.used == len(set(flat.tolist()))
+        ends = s.offsets[s.tile_e + 1]
+        assert bool((s.tile_r < ends).all())
+        assert bool((torch.minimum(s.tile_r + bm, ends) - s.tile_r
+                     <= bm).all())
+        assert len(s.tile_e) <= moe_ref.max_tiles(n * k, E, bm)
+
+
+def test_variant_follows_the_choices_per_expert():
+    assert moe_ops.plan(6, 64) == (0, 8)  # batch-1 decode
+    assert moe_ops.plan(6 * 170, 64) == (0, 8)
+    assert moe_ops.plan(6 * 256, 64) == (1, 32)  # a 256-token suffix
+    assert moe_ops.plan(6 * 1024, 64) == (2, 64)  # a 1,024-token prefill

@@ -240,3 +240,132 @@ def test_engine_records_into_the_process_tracer_by_default(model):
     cfg, params, *_ = model
     eng = LiveEngine(params, cfg, KVStore(), device="cpu")
     assert eng.tracer is tracing.TRACER
+
+
+# -- the MoE layer's spans ------------------------------------------------------
+
+def moe_serve(tracer, **submit):
+    """A reduced deepseek-moe-16b (a dense first layer, then 3 MoE layers,
+    routed as published) serving one reuse and one plain request."""
+    cfg = reduce_config(get_config("deepseek-moe-16b"), num_layers=4)
+    params = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab_size, N_PRE)
+    kv_k, kv_v = paged_model.donor_prefix_kv(params, cfg, prefix)
+    store = KVStore()
+    store.register_prefix(prefix, kv_k, kv_v, tokens_per_chunk=16,
+                          resolutions=("240p",))
+    eng = LiveEngine(params, cfg, store, device="cpu", tracer=tracer)
+    eng.submit(np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                    N_SUF)]),
+               reuse_prefix=prefix_key(prefix), reuse_tokens=N_PRE,
+               max_new_tokens=4)
+    eng.submit(rng.integers(0, cfg.vocab_size, N_PLAIN), max_new_tokens=4)
+    return cfg, eng
+
+
+def test_a_moe_span_per_moe_layer_call_with_its_counts(monkeypatch):
+    """Each prefill and decode step makes one ``moe`` span per MoE layer,
+    inside the step's own span; ``tokens`` and ``choices`` are set when
+    it opens, ``experts`` (distinct experts chosen) only at the step's
+    readback of its tokens."""
+    tr = tracing.Tracer()
+    cfg, eng = moe_serve(tr)
+    open_counts = []
+    read_back = tr.read_back
+
+    def checked(t):
+        # before the readback the step's spans lack their expert counts
+        open_counts.append(all("experts" not in s.counts
+                               for s, _, _ in tr._deferred))
+        return read_back(t)
+    monkeypatch.setattr(tr, "read_back", checked)
+    eng.run()
+    assert open_counts and all(open_counts)
+    n_moe = cfg.num_layers - 1
+    spans = tr.spans("moe")
+    parents = [s.parent.name for s in spans]
+    for kind, n in (("plain prefill", N_PLAIN), ("suffix prefill", N_SUF)):
+        mine = [s for s in spans if s.parent.name == kind]
+        assert len(mine) == n_moe
+        assert all(s.counts["tokens"] == n for s in mine)
+    steps = len(tr.spans("decode step"))
+    assert parents.count("decode step") == n_moe * steps
+    assert len(spans) == n_moe * (2 + steps)
+    E, k = cfg.num_experts, cfg.experts_per_token
+    for s in spans:
+        assert s.counts["choices"] == k * s.counts["tokens"]
+        assert k <= s.counts["experts"] <= min(E, s.counts["choices"])
+    assert not tr._deferred
+
+
+HOST_READS = ("tolist", "item", "__int__", "__float__", "__bool__",
+              "__index__", "numpy", "cpu")
+
+
+def count_reads(monkeypatch):
+    """Count the calls that bring a tensor's values to the host."""
+    seen = {"n": 0}
+    for name in HOST_READS:
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _real=real, **k):
+            seen["n"] += 1
+            return _real(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    return seen
+
+
+def decode_step_reads(eng, monkeypatch) -> int:
+    """Host reads of tensors in one decode-only step of ``eng``."""
+    while any(r.t_first_token is None for r in eng.sched.running) \
+            or not eng.sched.running:
+        eng.step()
+    with monkeypatch.context() as m:
+        seen = count_reads(m)
+        eng.step()
+    return seen["n"]
+
+
+def test_the_moe_spans_add_no_host_read(model, monkeypatch):
+    """With the grouped op as on the card (no host read: here a stand-in
+    that computes every expert densely and counts the chosen ones on the
+    device), a decode step of the MoE engine reads tensors to the host
+    exactly as often as a dense engine's step: once for the positions,
+    once for the tokens with every ``moe`` span's count."""
+    from repro_torch.models import moe
+
+    def on_device(x, ids, wts, wi, wo):
+        E = wi.shape[0]
+        h = torch.einsum("nd,edcf->encf", x, wi)
+        y = torch.einsum("enf,efd->end", torch.nn.functional.silu(
+            h[:, :, 0]) * h[:, :, 1], wo)
+        w = torch.zeros(x.shape[0], E).scatter(1, ids, wts)
+        used = torch.zeros(E).scatter(0, ids.reshape(-1),
+                                      torch.ones(ids.numel())) > 0
+        return torch.einsum("ne,end->nd", w, y), used.sum().reshape(1)
+    monkeypatch.setattr(moe, "moe_experts", on_device)
+    tr = tracing.Tracer()
+    _, eng = moe_serve(tr)
+    moe_reads = decode_step_reads(eng, monkeypatch)
+    cfg, params, prefix, kv_k, kv_v, rng = model
+    dense = LiveEngine(params, cfg, KVStore(), device="cpu",
+                       tracer=tracing.Tracer())
+    for _ in range(2):
+        dense.submit(rng.integers(0, cfg.vocab_size, N_PLAIN),
+                     max_new_tokens=4)
+    assert moe_reads == decode_step_reads(dense, monkeypatch) == 2
+    assert all("experts" in s.counts for s in tr.spans("moe"))
+
+
+def test_current_is_the_tracer_of_the_innermost_open_span():
+    """Model code finds its tracer through ``tracing.current()``: the
+    tracer whose span is open innermost, and none outside every span."""
+    a, b = tracing.Tracer(), tracing.Tracer()
+    assert tracing.current() is None
+    with a.span("outer"):
+        assert tracing.current() is a
+        with b.span("inner"):
+            assert tracing.current() is b
+        assert tracing.current() is a
+    assert tracing.current() is None

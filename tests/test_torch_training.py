@@ -20,7 +20,7 @@ from repro.training import optimizer as jax_opt  # noqa: E402
 from repro.training import steps as jax_steps  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    ASSIGNED_ARCHS, get_config, reduce_config)
+    ASSIGNED_ARCHS, get_config, jax_routing, reduce_config)
 from repro_torch.data.pipeline import DataConfig, batches  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models.common import cross_entropy  # noqa: E402
@@ -135,7 +135,7 @@ def test_checkpoint_roundtrip(tmp_path):
                                   "hubert-xlarge"])
 def test_batches_byte_equal_to_jax(arch):
     """The three families (tokens; patch embeds; frame embeds and mask)."""
-    cfg = reduce_config(get_config(arch))
+    cfg = jax_routing(reduce_config(get_config(arch)))
     jcfg = jax_configs.reduce_config(jax_configs.get_config(arch))
     mine = batches(cfg, DataConfig(batch_size=3, seq_len=40, seed=7))
     ref = jax_pipeline.batches(jcfg, jax_pipeline.DataConfig(
@@ -172,7 +172,7 @@ _MODELS = {}
 def _model(arch):
     """(cfg, JAX cfg, JAX params, the port's bridged params)."""
     if arch not in _MODELS:
-        cfg = reduce_config(get_config(arch))
+        cfg = jax_routing(reduce_config(get_config(arch)))
         jcfg = jax_configs.reduce_config(jax_configs.get_config(arch))
         jp = jax_tf.init_params(jcfg, jax.random.PRNGKey(
             ASSIGNED_ARCHS.index(arch) + 3))

@@ -31,8 +31,10 @@ ARCH_CASES = [(a, 2) for a in configs.ASSIGNED_ARCHS] + [
 
 
 def _cfgs(arch, layers):
-    return (configs.reduce_config(configs.get_config(arch),
-                                  num_layers=layers),
+    """The port's reduced config, routed as the JAX package routes, and
+    the JAX package's."""
+    return (configs.jax_routing(configs.reduce_config(
+                configs.get_config(arch), num_layers=layers)),
             jax_configs.reduce_config(jax_configs.get_config(arch),
                                       num_layers=layers))
 
@@ -100,7 +102,13 @@ def test_config_matches_jax(arch, reduced):
     cfg, ref = configs.get_config(arch), jax_configs.get_config(arch)
     if reduced:
         cfg, ref = configs.reduce_config(cfg), jax_configs.reduce_config(ref)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    # the port's routing fields, which the JAX package does not have: the
+    # published routing for deepseek, the JAX package's for the rest
+    ours = dataclasses.asdict(cfg)
+    routing = (ours.pop("norm_topk_prob"), ours.pop("moe_dropless"))
+    assert routing == ((False, True) if arch == "deepseek-moe-16b"
+                       else (True, False))
+    assert ours == dataclasses.asdict(ref)
     for active in (False, True):
         assert cfg.param_count(active) == ref.param_count(active)
     assert cfg.kv_bytes_per_token() == ref.kv_bytes_per_token()
