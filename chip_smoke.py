@@ -53,6 +53,14 @@ JAX or of the JAX package.  Phases:
    the plain version, one launch timed in a CUDA graph beside its byte
    bound (the chain of rounds, not bytes, sets its time), the whole call
    and both host decoders timed on the host clock;
+3b. kernel: ``dense_3xtf32`` at ``DENSE_CASES`` (yi-9b's, lwm-7b's and
+   deepseek-moe-16b's prefill products, q/k/v in one launch): the error
+   of each output against an fp64 product (relative Frobenius norm) at
+   most twice that of its plain version, ``torch.matmul`` in fp32, which
+   is also the library yardstick; each timed in a CUDA graph beside its
+   bound in 3xTF32 and in fp32 SIMT, with phase 1's one kernel per call;
+   its launches on the path are the ``tc_products`` of every prefill span
+   of phases 4 to 13, and no decode step launches it;
 4. main path: a ``LiveEngine`` serves two requests that fetch the prefix
    and one plain request, 16 new tokens each; the kernels' launch counts
    are set to 0 just before and read just after, and must equal what the
@@ -289,6 +297,8 @@ from repro_torch.core.scheduler import Request  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batches  # noqa: E402
 from repro_torch.data.workload import shared_prefix_tokens  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.dense_3xtf32 import ops as dense_ops  # noqa: E402
+from repro_torch.kernels.dense_3xtf32.ref import dense_ref  # noqa: E402
 from repro_torch.kernels.kv_restore import ops as kv_ops  # noqa: E402
 from repro_torch.kernels.kv_restore.ref import (  # noqa: E402
     kv_restore_layers_ref, kv_restore_ref)
@@ -555,6 +565,11 @@ def count_kernels_child() -> int:
         :ds.experts_per_token][None].contiguous()
     wts = torch.rand(1, ds.experts_per_token, device=dev, generator=g)
     calls["moe_experts"] = lambda: moe_ops.moe_experts(xm, ids, wts, wi, wo)
+    # lwm-7b's q/k/v at the donor's 512-token prefill, one launch
+    xd = torch.randn(PREFIX_TOKENS, lwm.d_model, device=dev, generator=g)
+    wd = [torch.randn(lwm.d_model, lwm.d_model, device=dev, generator=g)
+          for _ in range(3)]
+    calls["dense_3xtf32"] = lambda: dense_ops.dense_3xtf32(xd, wd)
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
@@ -605,10 +620,11 @@ def kernel_counts() -> dict:
         # token-delta ops one kernel per stack, rans_decode one kernel per
         # chunk, paged_attention its split kernel and, when it splits the
         # pages, the merge, moe_experts the sort, the gate-up and down
-        # products and the PyTorch sum over each token's choices
+        # products and the PyTorch sum over each token's choices,
+        # dense_3xtf32 one kernel for all of a call's weights
         want = {"ssd_scan": 2, "ssd_scan_bwd": 5, "token_delta_encode": 1,
                 "token_delta_decode_frames": 1, "rans_decode": 1,
-                "moe_experts": 4}.get(
+                "moe_experts": 4, "dense_3xtf32": 1}.get(
             name, 1 if name.startswith("kv_restore") or c["splits"] == 1
             else 2)
         log(f"[profile] {name}: {c['kernels']} CUDA kernels per op call "
@@ -2533,6 +2549,108 @@ def moe_path(dev, cfg, params, store, man, prefix, prompts, plain, frames):
     return launches
 
 
+#: (case, rows, depth, widths) of ``dense_3xtf32_phase``: yi-9b's products
+#: at the benchmark's median prompt (q/k/v in one launch, o, SwiGLU wi, MLP
+#: wo), lwm-7b's at the path's 512-token donor prefill, deepseek-moe-16b's
+#: at a 1,024-token document (q/k/v, its shared experts' wi and wo, layer
+#: 0's MLP wo)
+DENSE_CASES = (("yi-9b q/k/v", 1020, 4096, (4096, 512, 512)),
+               ("yi-9b o", 1020, 4096, (4096,)),
+               ("yi-9b wi", 1020, 4096, (22016,)),
+               ("yi-9b mlp wo", 1020, 11008, (4096,)),
+               ("lwm-7b q/k/v", 512, 4096, (4096,) * 3),
+               ("lwm-7b wi", 512, 4096, (22016,)),
+               ("lwm-7b mlp wo", 512, 11008, (4096,)),
+               ("deepseek-moe-16b q/k/v", 1024, 2048, (2048,) * 3),
+               ("deepseek-moe-16b shared wi", 1024, 2048, (5632,)),
+               ("deepseek-moe-16b shared wo", 1024, 2816, (2048,)),
+               ("deepseek-moe-16b mlp wo", 1024, 10944, (2048,)))
+
+
+def dense_bound(M: int, K: int, widths) -> tuple:
+    """(bound ms, what bounds it, the fp32 SIMT bound ms) of one launch:
+    x, the weights and the outputs moved once; 2 M K N operations, three
+    times over in 3xTF32 at 495 TFLOP/s, once at 67 in fp32."""
+    N = sum(widths)
+    n_bytes = 4.0 * (M * K + K * N + M * N)
+    ms, by = bound(n_bytes, 3 * 2.0 * M * K * N, TF32_FLOPS_PER_S)
+    return ms, by, bound(n_bytes, 2.0 * M * K * N)[0]
+
+
+def rel_err(y: torch.Tensor, ref: torch.Tensor) -> float:
+    """relative Frobenius norm of y - ref, ref in fp64"""
+    return ((y.double() - ref).norm() / ref.norm()).item()
+
+
+def dense_3xtf32_phase(dev, n_kernels: int) -> dict:
+    """``dense_3xtf32`` against fp64 and its plain version (torch.matmul
+    in fp32) at each ``DENSE_CASES`` shape, timed.  Returns the kernel
+    row: the sums over yi-9b's four products (a layer of the benchmark's
+    median plain prefill)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    times, worst = {}, 0.0
+    for case, M, K, widths in DENSE_CASES:
+        x = torch.randn(M, K, device=dev, generator=g)
+        ws = [torch.randn(K, N, device=dev, generator=g) * K ** -0.5
+              for N in widths]
+        got = dense_ops.dense_3xtf32(x, ws)
+        plain = dense_ref(x, ws)
+        torch.cuda.synchronize()
+        err = err32 = 0.0
+        for y, p, w in zip(got, plain, ws):
+            ref = x.double() @ w.double()
+            err, err32 = max(err, rel_err(y, ref)), max(err32,
+                                                         rel_err(p, ref))
+        check(err <= 2 * err32, f"dense_3xtf32 {case}: error {err:.3g} "
+              f"against fp64, torch.matmul's {err32:.3g}")
+        worst = max(worst, err)
+        ms = graph_ms(lambda: dense_ops.dense_3xtf32(x, ws), iters=20)
+        plain_ms = graph_ms(lambda: dense_ref(x, ws), iters=20)
+        b_ms, b_by, simt_ms = dense_bound(M, K, widths)
+        times[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, simt_ms=simt_ms)
+        tflops = 2.0 * M * K * sum(widths) / ms / 1e9
+        log(f"[kernel] dense_3xtf32 {case} (M {M}, K {K}, N {widths}): "
+            f"error {err:.3g} against fp64, torch.matmul's {err32:.3g}; "
+            f"{n_kernels} CUDA kernels per call; device {ms * 1e3:.2f} "
+            f"us/call ({tflops:.1f} TFLOP/s of fp32 work), bound "
+            f"{b_ms * 1e3:.2f} us by {b_by} (fp32 SIMT {simt_ms * 1e3:.2f}),"
+            f" torch.matmul {plain_ms * 1e3:.2f} us ({plain_ms / ms:.3f} x)")
+        del x, ws, got, plain
+    torch.cuda.empty_cache()
+    layer = [times[c] for c, *_ in DENSE_CASES if c.startswith("yi-9b")]
+    row = {k: sum(t[k] for t in layer)
+           for k in ("ms", "plain_ms", "bound_ms", "simt_ms")}
+    log(f"[kernel] dense_3xtf32 a yi-9b layer at 1,020 rows: "
+        f"{row['ms'] * 1e3:.2f} us against torch.matmul "
+        f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f}"
+        f" us (3xTF32), {row['simt_ms'] * 1e3:.2f} us (fp32 SIMT)")
+    return dict(row, name="dense_3xtf32", route="cuda",
+                source="src/repro_torch/kernels/dense_3xtf32/dense_3xtf32.cu",
+                replaces="none (XLA's products: jnp.einsum in "
+                         "src/repro/models/attention.py and mlp.py)",
+                max_abs_err=worst, bound_by=times["yi-9b wi"]["bound_by"],
+                library_ms=row["plain_ms"], by_case=times)
+
+
+def dense_launches_on_the_path(since: float) -> int:
+    """The kernel's launches in the engines' prefills since ``since`` (the
+    spans' ``tc_products``); no decode step may launch it."""
+    spans = {name: tracing.TRACER.spans(name, since=since)
+             for name in ("plain prefill", "suffix prefill", "decode step")}
+    check(all(v is not None for v in spans.values()),
+          "the tracer dropped spans of the serving phases")
+    check(all(s.counts["tc_products"] == 0 for s in spans["decode step"]),
+          "a decode step launched dense_3xtf32")
+    prefills = spans["plain prefill"] + spans["suffix prefill"]
+    n = sum(s.counts["tc_products"] for s in prefills)
+    products = sum(s.counts["products"] for s in prefills)
+    log(f"[kernel] dense_3xtf32 on the path: {n} launches for {products} "
+        f"dense products in {len(prefills)} prefills; 0 in "
+        f"{len(spans['decode step'])} decode steps")
+    return n
+
+
 #: (case, tokens) of ``moe_experts_phase``: deepseek-moe-16b's decode
 #: steps at batch 1 and 3 (phase 13), the 16- and 256-token suffixes and
 #: a 1,024-token prefill (the benchmark's documents), each at its
@@ -2866,6 +2984,8 @@ def main() -> int:
                               frame_timing=True)
     rans_row = rans_decode_phase(dev, cfg, man, counts["rans_decode"],
                                  kv=(kv_k, kv_v))
+    dense_row = dense_3xtf32_phase(dev, counts["dense_3xtf32"])
+    t_serve = time.monotonic()
     rows = [kv_row]
     attn = {}
     for case, arch, lens, width, seed in ATTN_CASES:
@@ -2971,6 +3091,7 @@ def main() -> int:
                       for G, share in restores_by_group(d_man).items()})
     for name, n in d_launches.items():
         launches[name] = launches.get(name, 0) + n
+    launches["dense_3xtf32"] = dense_launches_on_the_path(t_serve)
     del d_params, d_store, d_man
     torch.cuda.empty_cache()
     log(f"[moe] phases 11-13 wall {time.perf_counter() - t_phase:.2f} s")
@@ -3040,6 +3161,7 @@ def main() -> int:
         f"{rans_row['bound_ms'] * 1e3:.4f} us")
     rows.append(rans_row)
     rows.append(moe_row)
+    rows.append(dense_row)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

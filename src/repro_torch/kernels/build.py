@@ -26,8 +26,8 @@ import torch
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
-SOURCES = ("kv_restore", "moe_experts", "paged_attention", "rans_decode",
-           "ssd_scan", "token_delta")
+SOURCES = ("dense_3xtf32", "kv_restore", "moe_experts", "paged_attention",
+           "rans_decode", "ssd_scan", "token_delta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

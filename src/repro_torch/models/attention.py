@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.dense_3xtf32 import ops as dense
 from repro_torch.models.common import apply_rope
 from repro_torch.sharding import rules
 from repro_torch.sharding.rules import local_region, shard_hint
@@ -284,9 +285,7 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _project_qkv_local(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = dense.einsums("bsd,dhk->bshk", x, (p["wq"], p["wk"], p["wv"]))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)

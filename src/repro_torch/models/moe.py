@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dense_3xtf32 import ops as dense
 from repro_torch.kernels.moe_experts.ops import moe_experts
 from repro_torch.models.common import squared_relu
 from repro_torch.models.mlp import apply_mlp, mlp_param_axes
@@ -73,7 +74,7 @@ def route(p: dict, x: torch.Tensor, cfg: ModelConfig
     tope [b, s, k] expert ids).  ``jax.lax.top_k`` puts the lower index
     first among equal values; a stable descending sort does the same,
     which ``torch.topk`` does not promise."""
-    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)
+    logits = dense.einsum("bsd,de->bse", x, p["router"].to(x.dtype)
                           ).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)

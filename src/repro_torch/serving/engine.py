@@ -81,6 +81,7 @@ from repro_torch.core.layout import IntraLayout
 from repro_torch.core.scheduler import (FetchingAwareScheduler, ReqState,
                                         Request)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.dense_3xtf32 import ops as dense
 from repro_torch.models.attention import _project_qkv, attend
 from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import lm_logits
@@ -555,7 +556,8 @@ class LiveEngine:
         tokens = self.prompts[req.rid]
         kind, n = (("suffix prefill", len(tokens) - req.reuse_tokens)
                    if req.needs_fetch else ("plain prefill", len(tokens)))
-        with self.tracer.span(kind, req.rid, tokens=n) as span:
+        with self.tracer.span(kind, req.rid, tokens=n) as span, \
+                dense.counted(span):
             total = len(tokens) + req.max_new_tokens
             if req.rid not in self.cache.seqs:
                 self.cache.add_seq(req.rid, total)
@@ -645,7 +647,7 @@ class LiveEngine:
             v_all = torch.cat([pv.to(v.dtype), v], dim=1)
             out = attend(q, k_all, v_all, positions, kpos, causal=True,
                          window=cfg.sliding_window)
-            x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+            x = x + dense.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
             h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + paged_model._mlp_out(lp, h2, cfg)
             self._clock += comp[i]
@@ -681,7 +683,8 @@ class LiveEngine:
             positions = torch.as_tensor(
                 [len(self.prompts[r.rid]) + r.tokens_out - 1
                  for r in active], dtype=torch.int32)
-            with self.tracer.span("decode step"):
+            with self.tracer.span("decode step") as span, \
+                    dense.counted(span):
                 logits = paged_model.decode_paged(
                     self.params, self.cfg, toks, positions, self.cache,
                     seq_ids)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dense_3xtf32 import ops as dense
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -61,7 +62,7 @@ def prefill_collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
         kvs.append((k, v))
         out = attend(q, k, v, positions, positions, causal=True,
                      window=cfg.sliding_window)
-        x = x + torch.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
+        x = x + dense.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp_out(lp, h2, cfg)
     return lm_logits(params, cfg, x[:, -1:, :])[:, 0], kvs

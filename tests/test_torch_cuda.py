@@ -1216,3 +1216,99 @@ def test_moe_experts_refuses_grad_and_odd_widths(cuda):
     with pytest.raises(ValueError, match="multiples of 64"):
         moe_ops.moe_experts(x, ids, w, wi[..., :48].contiguous(),
                             wo[:, :48].contiguous())
+
+
+def _dense_err(y, ref):
+    """relative Frobenius norm of y - ref, ref in fp64"""
+    return ((y.double() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize("M", [64, 291, 1020, 3576])
+@pytest.mark.parametrize("K,widths", [
+    (4096, (4096, 512, 512)),  # yi-9b's q/k/v in one launch
+    (4096, (4096,)),           # yi-9b's o
+    (4096, (22016,)),          # yi-9b's SwiGLU wi
+    (11008, (4096,)),          # yi-9b's MLP wo
+    (2048, (2048, 2048, 2048)),  # deepseek-moe-16b's q/k/v
+    (10944, (2048,)),          # deepseek-moe-16b's layer-0 MLP wo
+], ids=["yi q/k/v", "yi o", "yi wi", "yi mlp wo", "ds q/k/v", "ds mlp wo"])
+def test_dense_3xtf32_against_fp64_and_the_plain_product(cuda, M, K,
+                                                         widths):
+    """One launch for every weight; each output's error against an fp64
+    product at most twice that of the plain version, torch.matmul in
+    fp32 (TF32 off), and within 1e-5 of its largest magnitude."""
+    from repro_torch.kernels.dense_3xtf32 import ops as dense_ops
+    from repro_torch.kernels.dense_3xtf32.ref import dense_ref
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn(M, K, device=cuda, generator=g)
+    ws = [torch.randn(K, N, device=cuda, generator=g) * K ** -0.5
+          for N in widths]
+    before = dense_ops.launches
+    got = dense_ops.dense_3xtf32(x, ws)
+    assert dense_ops.launches == before + 1
+    for y, p, w in zip(got, dense_ref(x, ws), ws):
+        ref = x.double() @ w.double()
+        assert _dense_err(y, ref) <= 2 * _dense_err(p, ref)
+        assert (y - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+
+
+def test_dense_3xtf32_edges(cuda):
+    """Rows, depth and widths that fill no tile: every output element
+    written, none past the edges."""
+    from repro_torch.kernels.dense_3xtf32 import ops as dense_ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(13, 36, device=cuda, generator=g)
+    ws = [torch.randn(36, n, device=cuda, generator=g) for n in (12, 8, 132)]
+    got = dense_ops.dense_3xtf32(x, ws)
+    for y, w in zip(got, ws):
+        ref = x.double() @ w.double()
+        assert _dense_err(y, ref) <= 2 * _dense_err(x @ w, ref) + 1e-7
+
+
+def test_dense_3xtf32_refuses_grad_and_odd_widths(cuda):
+    from repro_torch.kernels.dense_3xtf32 import ops as dense_ops
+    x = torch.randn(8, 64, device=cuda)
+    w = torch.randn(64, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        dense_ops.dense_3xtf32(x.clone().requires_grad_(), [w])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dense_ops.dense_3xtf32(x, [torch.randn(64, 30, device=cuda)])
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_ops.dense_3xtf32(x, [w.T.contiguous().T])
+
+
+def test_dense_routing_on_the_card(cuda):
+    """A plain prefill of 264 tokens at a width that fills the card
+    (d 2048, ff 5632; the output projection's and MLP wo's 16 column
+    tiles give 80 blocks of 64 tokens, at least half of an H100's 132
+    SMs): every dense product of its layers goes to the kernel, one launch
+    each (q/k/v in one), and the first token's logits stay within 2e-4 of
+    the largest of the CPU's, which runs torch.einsum; its decode steps
+    launch none."""
+    import dataclasses
+
+    from repro_torch.kernels.dense_3xtf32 import ops as dense_ops
+    cfg = dataclasses.replace(reduce_config(get_config("lwm-7b")),
+                              d_model=2048, num_heads=16, num_kv_heads=16,
+                              head_dim=128, d_ff=5632)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 264)))
+    want, _ = paged_model.prefill_collect_kv(params, cfg, tokens)
+    card = _to(params, cuda)
+    p0, l0 = dense_ops.products, dense_ops.launches
+    got, _ = paged_model.prefill_collect_kv(card, cfg, tokens.to(cuda))
+    assert (dense_ops.products - p0 == dense_ops.launches - l0
+            == 4 * cfg.num_layers)
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 2e-4 * scale
+    tr = tracing.Tracer()
+    eng = LiveEngine(card, cfg, KVStore(), device=cuda, tracer=tr)
+    eng.submit(tokens[0].numpy(), max_new_tokens=3)
+    eng.run()
+    (span,) = tr.spans("plain prefill")
+    assert span.counts["tc_products"] == span.counts["products"] == \
+        4 * cfg.num_layers
+    steps = tr.spans("decode step")
+    assert len(steps) == 2
+    assert all(s.counts["tc_products"] == 0 for s in steps)
