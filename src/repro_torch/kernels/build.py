@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_n_sm: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -114,3 +115,13 @@ def refuse_grad(op: str, *tensors) -> None:
         raise RuntimeError(
             f"{op}: the CUDA kernel has no gradient; call it under "
             f"torch.no_grad() or on tensors that do not require grad")
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, read once."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _n_sm[idx]

@@ -49,7 +49,6 @@ MAX_WEIGHTS = 3
 DEVICE_TYPE = "cuda"
 
 _fn = None
-_n_sm = {}
 
 
 def _launcher():
@@ -62,13 +61,7 @@ def _launcher():
     return _fn
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _n_sm[idx]
+_sm_count = build.sm_count
 
 
 def _tiles(widths: Sequence[int]) -> int:

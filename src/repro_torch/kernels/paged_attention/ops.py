@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
 
 import torch
 
@@ -31,7 +30,6 @@ HEAD_TILE = 8
 MAX_HEAD_DIM = 256
 
 _fn = None
-_n_sm: Dict[int, int] = {}
 
 
 def plan_splits(B: int, H: int, K: int, bps: int, n_sm: int = 132) -> int:
@@ -46,13 +44,7 @@ def plan_splits(B: int, H: int, K: int, bps: int, n_sm: int = 132) -> int:
     return max(1, min(want, most))
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _n_sm[idx]
+_sm_count = build.sm_count
 
 
 def _launcher():

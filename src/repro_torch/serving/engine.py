@@ -82,11 +82,7 @@ from repro_torch.core.scheduler import (FetchingAwareScheduler, ReqState,
                                         Request)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dense_3xtf32 import ops as dense
-from repro_torch.models.attention import _project_qkv, attend
-from repro_torch.models.common import rms_norm
-from repro_torch.models.transformer import lm_logits
 from repro_torch.paged.cache import PagedKVCache
-from repro_torch.params import layer_params
 from repro_torch.serving import paged_model, tracing
 from repro_torch.sharding import rules
 
@@ -602,8 +598,7 @@ class LiveEngine:
             return
         while req.fetch_done is None and req.layers_ready <= layer:
             t = self.ctrl.pump_next()
-            if self._sharded:
-                self._check_sharded()
+            self._check_sharded()
             if t is None:
                 if req.fetch_done is not None or req.layers_ready > layer:
                     break
@@ -615,51 +610,31 @@ class LiveEngine:
 
     def _suffix_prefill(self, req: Request,
                         tokens: np.ndarray) -> torch.Tensor:
-        """Prefill only the non-reused suffix, attending over restored
-        prefix KV gathered from the paged cache.  Layer k's compute waits
-        for layer k's restore event only (layer-wise pipeline)."""
-        cfg = self.cfg
-        dev = self.device
+        """Prefill only the non-reused suffix over the restored prefix KV
+        (``paged_model.prefill_over_pages``): layer k waits for layer k's
+        restore event only (layer-wise pipeline)."""
         n_pre = req.reuse_tokens
-        suffix = torch.as_tensor(tokens[None, n_pre:], dtype=torch.long,
-                                 device=dev)
-        b, s = suffix.shape
-        positions = torch.arange(n_pre, n_pre + s, dtype=torch.int32,
-                                 device=dev).expand(b, s)
-        pre_pos = torch.arange(n_pre, dtype=torch.int32,
-                               device=dev).expand(b, n_pre)
-        kpos = torch.cat([pre_pos, positions], dim=1)
-        rows = self.cache.slots_tensor(
-            self.cache.slots_for(req.rid, np.arange(n_pre))).long()
-        comp = (self.cost.layer_comp_times(s) if self.virtual else
-                [0.0] * cfg.num_layers)
-        x = self.params["embed"][suffix]
-        for i in range(cfg.num_layers):
+        comp = (self.cost.layer_comp_times(len(tokens) - n_pre)
+                if self.virtual else [0.0] * self.cfg.num_layers)
+
+        def before_layer(i: int) -> None:  # layer i - 1's compute, then wait
+            if i:
+                self._clock += comp[i - 1]
             self._await_layer(req, i)
-            lp = layer_params(self.params, cfg, i)
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = _project_qkv(lp["attn"], h, cfg, positions)
-            self.cache.write_prefill(i, req.rid, k[0], v[0],
-                                     start_pos=n_pre)
-            pk = self.cache.layer_rows(self.cache.k_pages, i)[rows][None]
-            pv = self.cache.layer_rows(self.cache.v_pages, i)[rows][None]
-            k_all = torch.cat([pk.to(k.dtype), k], dim=1)
-            v_all = torch.cat([pv.to(v.dtype), v], dim=1)
-            out = attend(q, k_all, v_all, positions, kpos, causal=True,
-                         window=cfg.sliding_window)
-            x = x + dense.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
-            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + paged_model._mlp_out(lp, h2, cfg)
-            self._clock += comp[i]
-        return lm_logits(self.params, cfg, x[:, -1:, :])[0, 0]
+
+        logits = paged_model.prefill_over_pages(
+            self.params, self.cfg, torch.as_tensor(
+                tokens[None, n_pre:], dtype=torch.long, device=self.device),
+            n_pre, self.cache, req.rid, before_layer)
+        self._clock += comp[-1]
+        return logits[0]
 
     # -- main loop ------------------------------------------------------------
     def step(self) -> bool:
         """One engine iteration. Returns False when idle and done."""
         if self.ctrl is not None:
             self.ctrl.pump(self.now())
-            if self._sharded:
-                self._check_sharded()
+            self._check_sharded()
         self.sched.schedule(self.now())
         if not self.external_dispatch:
             for req in self.sched.take_fetches():
@@ -713,8 +688,7 @@ class LiveEngine:
             if t is not None:
                 self._clock = max(self._clock, t)
                 self.ctrl.pump(self._clock)
-                if self._sharded:
-                    self._check_sharded()
+                self._check_sharded()
                 self.sched.schedule(self._clock)
         self.stats.steps += 1
         return bool(self.sched.running or self.sched.waiting

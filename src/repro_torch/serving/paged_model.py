@@ -1,11 +1,12 @@
 """Paged-cache model paths for the live serving engine (decoders whose
 layers are all attention: the paper's dense GQA class, LWM/Yi/Llama
-families, and the MoE decoders).
-
-``prefill_collect_kv`` runs the prompt and hands back per-layer K/V so the
-engine can scatter them into pages; ``decode_paged`` runs one token per
-sequence with per-sequence positions (continuous batching) through the
-paged-attention kernel.
+families, and the MoE decoders), each the one layer body ``_forward``
+with its own attention: ``prefill_collect_kv`` over a prompt, handing
+back per-layer K/V for the engine to scatter into pages;
+``prefill_over_pages`` over a sequence's tokens from a position on and
+the rows its pages hold (a reuse request's suffix); ``decode_paged``, one
+token per sequence at its own position (continuous batching), through
+the paged-attention kernel.
 """
 from __future__ import annotations
 
@@ -43,29 +44,63 @@ def _mlp_out(lp, h2, cfg: ModelConfig):
     return mlp_mod.apply_mlp(lp["mlp"], h2, cfg.mlp_kind)
 
 
-def prefill_collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
-                       ) -> Tuple[torch.Tensor,
-                                  List[Tuple[torch.Tensor, torch.Tensor]]]:
-    """tokens [b, s] -> (last-pos logits [b, V], [(k, v)] per layer).
-
-    Full causal attention over the prompt (dense arch assumption).
-    """
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
+def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+             positions: torch.Tensor, attention,
+             before_layer=None) -> torch.Tensor:
+    """tokens [b, s] at positions [b, s] -> last-pos logits [b, V].  Each
+    layer: ``before_layer(layer)`` if given, ln1, q/k/v, the path's
+    ``attention(layer, q, k, v)`` -> [b, s, H, hd], wo, ln2, MLP or MoE."""
     x = params["embed"][tokens]
-    kvs = []
     for i in range(cfg.num_layers):
+        if before_layer is not None:
+            before_layer(i)
         lp = layer_params(params, cfg, i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(lp["attn"], h, cfg, positions)
-        kvs.append((k, v))
-        out = attend(q, k, v, positions, positions, causal=True,
-                     window=cfg.sliding_window)
+        out = attention(i, q, k, v)
         x = x + dense.einsum("bshk,hkd->bsd", out, lp["attn"]["wo"])
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp_out(lp, h2, cfg)
-    return lm_logits(params, cfg, x[:, -1:, :])[:, 0], kvs
+    return lm_logits(params, cfg, x[:, -1:, :])[:, 0]
+
+
+def prefill_collect_kv(params, cfg: ModelConfig, tokens: torch.Tensor
+                       ) -> Tuple[torch.Tensor,
+                                  List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """tokens [b, s] -> (last-pos logits [b, V], [(k, v)] per layer):
+    full causal attention over the prompt (dense arch assumption)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    kvs = []
+
+    def attention(i, q, k, v):
+        kvs.append((k, v))
+        return attend(q, k, v, positions, positions, causal=True,
+                      window=cfg.sliding_window)
+    return _forward(params, cfg, tokens, positions, attention), kvs
+
+
+def prefill_over_pages(params, cfg: ModelConfig, tokens: torch.Tensor,
+                       n_pre: int, cache: PagedKVCache, seq_id: int,
+                       before_layer=None) -> torch.Tensor:
+    """tokens [1, s], sequence ``seq_id``'s from position ``n_pre`` on ->
+    last-pos logits [1, V]: each layer writes the tokens' K/V into the
+    sequence's pages and attends causally over its first n_pre + s rows."""
+    s = tokens.shape[1]
+    kpos = torch.arange(n_pre + s, dtype=torch.int32,
+                        device=tokens.device)[None]
+    positions = kpos[:, n_pre:]
+    rows = cache.slots_tensor(cache.slots_for(seq_id, np.arange(n_pre))).long()
+
+    def attention(i, q, k, v):
+        cache.write_prefill(i, seq_id, k[0], v[0], start_pos=n_pre)
+        pk = cache.layer_rows(cache.k_pages, i)[rows][None]
+        pv = cache.layer_rows(cache.v_pages, i)[rows][None]
+        return attend(q, torch.cat([pk.to(k.dtype), k], dim=1),
+                      torch.cat([pv.to(v.dtype), v], dim=1), positions,
+                      kpos, causal=True, window=cfg.sliding_window)
+    return _forward(params, cfg, tokens, positions, attention, before_layer)
 
 
 def donor_prefix_kv(params, cfg: ModelConfig,
@@ -84,33 +119,22 @@ def donor_prefix_kv(params, cfg: ModelConfig,
 def decode_paged(params, cfg: ModelConfig, tokens: torch.Tensor,
                  positions: torch.Tensor, cache: PagedKVCache,
                  seq_ids: List[int]) -> torch.Tensor:
-    """One decode step for a batch of sequences at distinct positions.
-
-    tokens [b] int; positions [b] int (index of the new token).
-    Writes the new token's K/V into the pages, then attends over the
-    paged cache with the paged-attention kernel. Returns logits [b, V].
-    """
+    """One decode step: tokens [b] int at positions [b] int (each
+    sequence's new token, at its own position) -> logits [b, V]."""
     dev = cache.device
     host_pos = positions.tolist()
     tokens = tokens.to(dev, torch.long)
     positions = positions.to(dev, torch.int32)
-    x = params["embed"][tokens][:, None, :]  # [b, 1, d]
-    pos2 = positions[:, None]
     bt = torch.as_tensor(cache.block_table_array(seq_ids), device=dev)
     context_lens = positions + 1
     # the new tokens' page rows, uploaded once and written for the whole
     # batch per layer (the JAX path writes sequence by sequence)
     slots = cache.slots_tensor(np.concatenate(
-        [cache.slots_for(sid, np.asarray([p]))
-         for sid, p in zip(seq_ids, host_pos)]))
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, cfg, i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(lp["attn"], h, cfg, pos2)
+        [cache.slots_for(sid, [p]) for sid, p in zip(seq_ids, host_pos)]))
+
+    def attention(i, q, k, v):
         cache.write_rows(i, slots, k[:, 0], v[:, 0])
-        out = paged_attention(q[:, 0].contiguous(), cache.k_pages[i],
-                              cache.v_pages[i], bt, context_lens)
-        x = x + torch.einsum("bhk,hkd->bd", out, lp["attn"]["wo"])[:, None]
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp_out(lp, h2, cfg)
-    return lm_logits(params, cfg, x)[:, 0]
+        return paged_attention(q[:, 0].contiguous(), cache.k_pages[i],
+                               cache.v_pages[i], bt, context_lens)[:, None]
+    return _forward(params, cfg, tokens[:, None], positions[:, None],
+                    attention)

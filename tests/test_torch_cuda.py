@@ -1284,7 +1284,7 @@ def test_dense_routing_on_the_card(cuda):
     SMs): every dense product of its layers goes to the kernel, one launch
     each (q/k/v in one), and the first token's logits stay within 2e-4 of
     the largest of the CPU's, which runs torch.einsum; its decode steps
-    launch none."""
+    route as many products and launch none."""
     import dataclasses
 
     from repro_torch.kernels.dense_3xtf32 import ops as dense_ops
@@ -1311,4 +1311,23 @@ def test_dense_routing_on_the_card(cuda):
         4 * cfg.num_layers
     steps = tr.spans("decode step")
     assert len(steps) == 2
-    assert all(s.counts["tc_products"] == 0 for s in steps)
+    for s in steps:
+        assert s.counts["products"] == 4 * cfg.num_layers
+        assert s.counts["tc_products"] == 0
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_decode_output_projection_on_the_card_is_the_unrouted_product(
+        cuda, b):
+    """At yi-9b's widths (32 heads of 128, d 4096) a decode step's output
+    projection through the routing, spelled as the prefills spell it,
+    launches no kernel and is ``torch.einsum("bhk,hkd->bd")`` bit for
+    bit."""
+    from repro_torch.kernels.dense_3xtf32 import ops as dense_ops
+    g = torch.Generator().manual_seed(b)
+    out = torch.randn(b, 32, 128, generator=g).to(cuda)
+    wo = (torch.randn(32, 128, 4096, generator=g) / 64).to(cuda)
+    l0 = dense_ops.launches
+    got = dense_ops.einsum("bshk,hkd->bsd", out[:, None], wo)
+    assert dense_ops.launches == l0
+    assert torch.equal(got[:, 0], torch.einsum("bhk,hkd->bd", out, wo))

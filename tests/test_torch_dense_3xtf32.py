@@ -228,8 +228,8 @@ def test_cpu_prefill_unchanged(arch, monkeypatch):
 
 def test_engine_spans_count_products_on_cpu():
     """A CPU engine's plain prefill runs 4 products a layer (q/k/v in one,
-    the output projection, the MLP's two), none on the kernel; its decode
-    steps launch none either."""
+    the output projection, the MLP's two), none on the kernel; so does
+    each of its decode steps, whose output projection is routed too."""
     cfg = reduce_config(get_config("lwm-7b"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tr = tracing.Tracer()
@@ -241,7 +241,22 @@ def test_engine_spans_count_products_on_cpu():
     assert span.counts["products"] == 4 * cfg.num_layers
     assert span.counts["tc_products"] == 0
     steps = tr.spans("decode step")
-    assert steps and all(s.counts["tc_products"] == 0 for s in steps)
+    assert len(steps) == 2
+    for s in steps:
+        assert s.counts["products"] == 4 * cfg.num_layers
+        assert s.counts["tc_products"] == 0
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_decode_output_projection_is_the_unrouted_product(b):
+    """At yi-9b's widths (32 heads of 128, d 4096) a decode step's output
+    projection through the routing, spelled as the prefills spell it, is
+    ``torch.einsum("bhk,hkd->bd")`` bit for bit."""
+    g = torch.Generator().manual_seed(b)
+    out = torch.randn(b, 32, 128, generator=g)
+    wo = torch.randn(32, 128, 4096, generator=g) / 64
+    got = dense.einsum("bshk,hkd->bsd", out[:, None], wo)
+    assert torch.equal(got[:, 0], torch.einsum("bhk,hkd->bd", out, wo))
 
 
 @pytest.mark.parametrize("M,tiles,want", [

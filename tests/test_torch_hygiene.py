@@ -35,3 +35,20 @@ def test_scan_sees_the_whole_port():
     assert "src/repro_torch/serving/engine.py" in names
     assert "chip_smoke.py" in names
     assert len(names) > 25
+
+
+def test_the_engine_leaves_the_model_step_to_paged_model():
+    """The serving engine schedules, fetches and stamps; the model step
+    (``serving/paged_model.py``) is the only serving module that reaches
+    into the models or the parameters."""
+    path = ROOT / "src" / "repro_torch" / "serving" / "engine.py"
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names += [f"{node.module}.{a.name}" for a in node.names]
+    assert "repro_torch.serving.paged_model" in names
+    bad = [n for n in names if n.startswith(("repro_torch.models",
+                                             "repro_torch.params"))]
+    assert not bad, f"serving/engine.py imports {bad}"

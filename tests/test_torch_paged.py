@@ -11,8 +11,9 @@ torch = pytest.importorskip("torch")
 from repro.paged.cache import PagedKVCache as JaxPagedKVCache  # noqa: E402
 from repro.serving import paged_model as jax_pm  # noqa: E402
 
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.paged.cache import PagedKVCache  # noqa: E402
-from repro_torch.params import from_numpy  # noqa: E402
+from repro_torch.params import from_numpy, init_params  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 
 
@@ -118,3 +119,30 @@ def test_donor_prefix_kv_matches_jax(tiny_cfg, tiny_params, torch_params):
     assert k.dtype == np.float32
     np.testing.assert_allclose(k, kj, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(v, vj, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["lwm-7b", "deepseek-moe-16b"])
+def test_prefill_over_no_prefix_is_the_plain_prefill(arch):
+    """The suffix prefill over no prefix runs the plain prefill's layers:
+    the same last logits bit for bit, every layer's hook in order, and
+    the plain prefill's K/V in the sequence's pages."""
+    cfg = reduce_config(get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    n = 21
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, n)))
+    want, kvs = paged_model.prefill_collect_kv(params, cfg, tokens)
+    cache = PagedKVCache(cfg, n_pages=8, page_size=8, device="cpu")
+    cache.add_seq(3, n + 2)
+    seen = []
+    got = paged_model.prefill_over_pages(params, cfg, tokens, 0, cache, 3,
+                                         before_layer=seen.append)
+    assert seen == list(range(cfg.num_layers))
+    assert got.shape == (1, cfg.vocab_size)
+    assert torch.equal(got, want)
+    rows = cache.slots_tensor(cache.slots_for(3, np.arange(n))).long()
+    for layer, (k, v) in enumerate(kvs):
+        assert torch.equal(cache.layer_rows(cache.k_pages, layer)[rows],
+                           k[0])
+        assert torch.equal(cache.layer_rows(cache.v_pages, layer)[rows],
+                           v[0])

@@ -79,19 +79,20 @@ def test_spans_nest_as_the_engine_runs_them(model):
 
 
 def test_prefill_spans_count_the_dense_products(model):
-    """Each prefill span carries the dense products its layers ran (q/k/v
-    in one, the output projection, the MLP's two: 4 a layer) and how many
-    of them the 3xTF32 kernel took: none on the CPU, nor in a decode
-    step."""
+    """Each prefill span and each decode step's carries the dense products
+    its layers ran (q/k/v in one, the output projection, the MLP's two: 4
+    a layer) and how many of them the 3xTF32 kernel took: none on the
+    CPU."""
     cfg = model[0]
     tr = tracing.Tracer()
     serve(model, tr)
-    for name in ("plain prefill", "suffix prefill"):
-        (span,) = tr.spans(name)
+    (plain,) = tr.spans("plain prefill")
+    (suffix,) = tr.spans("suffix prefill")
+    steps = tr.spans("decode step")
+    assert len(steps) == 3
+    for span in (plain, suffix, *steps):
         assert span.counts["products"] == 4 * cfg.num_layers
         assert span.counts["tc_products"] == 0
-    assert all(s.counts["tc_products"] == 0
-               for s in tr.spans("decode step"))
 
 
 def test_codec_time_lies_inside_its_fetch(model):
